@@ -13,7 +13,11 @@ exits non-zero):
 2. kernels against their plain torch versions at the LQR bench shapes
    (nb=10, ni=16, nr=25 -> 32, B=16384 float32; B=1024 float64), with a
    few lanes made indefinite so the retry ladder and acceptance flags run;
-   times of each kernel and its plain version with CUDA events.
+   times of each kernel and its plain version with CUDA events; then the
+   factor and apply_down kernels at ragged shapes (``RAGGED``: every
+   built interior size, two run-time sizes, reduced lane tiles; 1001
+   lanes, a multiple of neither the factor's lane tile, 32 nor 128) in
+   both types.
 3. float64 LQR (10x10 LGL, B=256) through the kernels against the
    analytic objective J1 * x0^2.
 4. the float32 bench workload: B=16384 LQR instances, two-stage drained
@@ -21,8 +25,11 @@ exits non-zero):
    The options are bench.py's, with ``newton_residual_rtol`` from
    ``--residual-rtol`` (default 0: off; bench.py keeps 1e-2).
 
-The line before the last lists each kernel's launches on the main path,
-its error against the plain version and both times; the last line is
+The line before the last lists each kernel's launches on the main path
+(and per batch), its error against the plain version, both times, and
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's peak for the type (``cuda_kkt.kernel_cost``,
+from this run's shapes and retries). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,16 +67,16 @@ def build_lqr(lobatto, mesh=10, num_point=10):
     return system, phase
 
 
-def kernel_inputs(core, B, dtype, seed, device):
-    """Batch-last padded blocks at the bench shapes, with the interiors'
-    spectra set: eigenvalues in [1, 10], except every 7th lane's block 3
-    with one eigenvalue at -0.5 (the retry ladder 0 -> 0.1 -> 1.0 accepts
-    it at 1.0) and every 61st lane's block 5 with one at -50 (rejected at
-    every rung); plus the apply right-hand sides. Every accepted block is
-    well conditioned, so kernel and plain version differ only by rounding."""
+def kernel_inputs(core, B, dtype, seed, device, nb=10, ni=16, nr=25, lanes=None):
+    """Batch-last padded blocks (the bench shapes by default), with the
+    interiors' spectra set: eigenvalues in [1, 10], except every 7th lane's
+    block 3 with one eigenvalue at -0.5 (the retry ladder 0 -> 0.1 -> 1.0
+    accepts it at 1.0) and every 61st lane's block 5 with one at -50
+    (rejected at every rung); plus the apply right-hand sides. Every
+    accepted block is well conditioned, so kernel and plain version differ
+    only by rounding. ``lanes`` cuts the padded lanes to that count."""
     import torch
 
-    nb, ni, nr = 10, 16, 25
     rng = np.random.default_rng(seed)
     Q, _ = np.linalg.qr(rng.standard_normal((B, nb, ni, ni)))
     lam = rng.uniform(1.0, 10.0, (B, nb, ni))
@@ -81,6 +88,8 @@ def kernel_inputs(core, B, dtype, seed, device):
     K_rr = A @ np.swapaxes(A, -1, -2) + 4 * nr * np.eye(nr)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Kt = core.pad_move(t(K_ii), t(K_ir), t(K_rr))
+    if lanes is not None:
+        Kt = tuple(k[..., :lanes].contiguous() for k in Kt)
     BT = Kt[0].shape[-1]
     b_i = t(rng.standard_normal((nb, core.ni_p, BT)))
     b_r = t(rng.standard_normal((core.nr_p, BT)))
@@ -144,6 +153,11 @@ def phase_kernels(B, dtype, rtol, timed):
         raise AssertionError("per-block delta levels differ between kernel and plain version")
     retried = int((fac[6][3, :B] > 0).sum())
     rejected = int((~ok_k).sum())
+    # extra Cholesky attempts of the interior retry ladder, from the levels
+    # factored (0 -> 0.1 -> 1.0): what this data adds to the factor's work
+    d_int = fac[6][:-1, :B].double()
+    chol_retries = int(torch.where(
+        d_int > 0, 1 + torch.round(torch.log10(d_int / kw["delta_floor"])), 0).sum())
     if retried == 0 or rejected == 0:
         raise AssertionError("the inputs did not exercise the retry ladder and rejection")
     # values are compared on the accepted lanes: a rejected lane's factors
@@ -179,7 +193,54 @@ def phase_kernels(B, dtype, rtol, timed):
                              cuda_ms(lambda: ck.apply_up_ref(L_r, sc_r, down[1], X_ir, down[0]), 3))
         print("phase 2 times B=%d %s: " % (B, dtype) + ", ".join(
             f"{k} kernel {v[0]:.3f} ms plain {v[1]:.3f} ms" for k, v in times.items()), flush=True)
-    return res, times
+    return res, times, chol_retries
+
+
+# (ni, nr) of the ragged checks and what each exercises, padded sizes in
+# brackets: built interior bodies [24, 8, 32], run-time bodies [40, 64],
+# fewer factor lanes per CTA than a full tile [32 or 64 with nr_p 64]
+RAGGED = ((20, 37), (5, 7), (30, 60), (37, 45), (64, 64))
+
+
+def phase_ragged(dtype, rtol, ni, nr):
+    """The factor and apply_down kernels against their plain versions at a
+    ragged shape: interiors of ``ni`` and a reduced block of ``nr``, padded
+    to multiples of 8, on 6 blocks and 1001 lanes (a multiple of neither
+    the factor's lane tile, 32 nor 128). Same flags, levels and per-lane
+    tolerance as the bench shapes."""
+    import torch
+
+    from pockit_tpu_torch.solver import cuda_kkt as ck
+
+    nb, lanes = 6, 1001
+    core = ck.make_core(np.arange(nb * ni).reshape(nb, ni), np.arange(nb * ni, nb * ni + nr),
+                        nb * ni + nr)
+    Kt, b_i, b_r = kernel_inputs(core, lanes, dtype, seed=11, device="cuda", nb=nb, ni=ni, nr=nr,
+                                 lanes=lanes)
+    kw = dict(ni_real=ni, nr_real=nr, pivot_rtol=2.0 * float(np.sqrt(np.finfo(np.float32).eps)),
+              delta_floor=0.1, attempts=3)
+    delta = torch.zeros(lanes, dtype=dtype, device="cuda")
+    fac = ck.factor_blocks(*Kt, delta, **kw)
+    fac_ref = ck.factor_blocks_ref(*Kt, delta, **kw)
+    torch.cuda.synchronize()
+    ok = fac[5][3] > 0.5
+    if not torch.equal(ok, fac_ref[5][3] > 0.5) or not torch.equal(fac[6], fac_ref[6]):
+        raise AssertionError("ragged: flags or per-block levels differ from the plain version")
+    if bool(ok.all()) or not bool((fac[6][3] > 0).any()):
+        raise AssertionError("ragged: the inputs did not exercise the retry ladder and rejection")
+    lanes_ok = torch.nonzero(ok)[:, 0].cpu()
+    errs = [max_err(a.cpu()[..., lanes_ok], b.cpu()[..., lanes_ok]) for a, b in zip(fac, fac_ref)]
+    down = ck.apply_down(fac[0], fac[1], Kt[1], b_i, b_r)
+    down_ref = ck.apply_down_ref(fac[0], fac[1], Kt[1], b_i, b_r)
+    torch.cuda.synchronize()
+    errs_d = [max_err(a.cpu()[..., lanes_ok], b.cpu()[..., lanes_ok]) for a, b in zip(down, down_ref)]
+    rel_f, rel_d = max(e[1] for e in errs), max(e[1] for e in errs_d)
+    print(f"phase 2 ragged {dtype} ni_p={core.ni_p} nr_p={core.nr_p} lanes={lanes} "
+          f"(factor lanes per CTA {ck.factor_tile_lanes(core.ni_p, core.nr_p, dtype)}): factor "
+          f"max_lane_rel_err={rel_f:.3e} apply_down max_lane_rel_err={rel_d:.3e}; lanes accepted "
+          f"{int(ok.sum())} (tolerance per-lane rel {rtol:.0e})", flush=True)
+    if not (rel_f <= rtol and rel_d <= rtol):
+        raise AssertionError(f"ragged {dtype}: kernel vs plain per-lane error above {rtol:.0e}")
 
 
 def main():
@@ -222,8 +283,11 @@ def main():
     # -- phase 2: kernels against plain versions ------------------------------
     # tolerance: FMA contraction and a different rounding of 1/sqrt, then
     # amplified by the factorization (blocks are well conditioned here)
-    errs32, times = phase_kernels(16384, torch.float32, 1e-4, timed=True)
+    errs32, times, retries32 = phase_kernels(16384, torch.float32, 1e-4, timed=True)
     phase_kernels(1024, torch.float64, 1e-11, timed=False)
+    for ni, nr in RAGGED:
+        phase_ragged(torch.float32, 1e-4, ni, nr)
+        phase_ragged(torch.float64, 1e-11, ni, nr)
 
     system, phase = build_lqr(lobatto)
     x0, _ = preprocess(system, [lobatto.constant_guess(phase, 0), [0.0]])
@@ -317,10 +381,17 @@ def main():
     replaces = {"factor": "pockit_tpu/solver/pallas_kkt.py:160",
                 "apply_down": "pockit_tpu/solver/pallas_kkt.py:385",
                 "apply_up": "pockit_tpu/solver/pallas_kkt.py:403"}
+    # the bound of the timed phase-2 calls: bench shapes, float32, B=16384
+    cost = {k: cuda_kkt.kernel_cost(k, 10, 16, 32, 16384, torch.float32,
+                                    retries32 if k == "factor" else 0)
+            for k in replaces}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": errs32[k][0],
-         "ms": times[k][0], "plain_ms": times[k][1]} for k in replaces]}), flush=True)
+         "launches": launches[k], "launches_per_batch": launches[k] / args.reps,
+         "max_abs_err": errs32[k][0], "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": cost[k]["bound_ms"], "bound_by": cost[k]["bound_by"],
+         "bytes": cost[k]["bytes"], "ops": cost[k]["ops"], "library_ms": None}
+        for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)
 

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Two builds of the block-arrow KKT kernels against each other on one card.
+
+    python3 kernel_ab.py --old-source OLD/pockit_tpu_torch/csrc/block_arrow_kkt.cu \
+        [--rounds 3] [--shape 10,16,25] [--batch 16384]
+
+Builds ``--old-source`` and the checkout's own source with the same flags
+(``pockit_tpu_torch/solver/_build.py``) and, at ``--shape`` (nb, ni, nr:
+by default the LQR bench shapes, padded to ni_p=16, nr_p=32) in float32
+on ``--batch`` lanes (``chip_smoke.py``'s inputs):
+
+- prints each build's ptxas registers, stack frame and spills per kernel;
+- checks that the two factor kernels give the same acceptance flags and
+  per-block levels and agree per lane within 1e-4, and the two apply_down
+  kernels likewise;
+- times the factor and apply_down kernels of both with CUDA events, in
+  turns (old, new, new, old per round), and prints the times as one JSON
+  line, the last.
+
+Each side is run through the port's own wrappers (``cuda_kkt.factor_blocks``
+and ``cuda_kkt.apply_down``) with that side's library loaded in their
+place, so both sources must export the same C launchers. Exits non-zero
+without a card.
+"""
+
+import argparse
+import json
+import re
+
+import numpy as np
+
+from chip_smoke import CPU_ONLY, cuda_ms, kernel_inputs, max_err, nvidia_smi
+
+
+def ptxas_summary(log):
+    """{kernel: 'N registers, S bytes stack, X bytes spill stores'} from a
+    ptxas -v log, for the factor and apply_down kernels."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kind = next((k for k in ("factor_kernel", "apply_down_kernel", "apply_up_kernel")
+                         if k in mangled), None)
+            typ = "f64" if ("IdL" in mangled or "IdE" in mangled) else "f32"
+            ni = re.search(r"Li(\d+)E", mangled)
+            name = f"{kind}<{typ}{', ' + ni.group(1) if ni else ''}>" if kind else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name] = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old-source", required=True, help="the other build's .cu file")
+    ap.add_argument("--rounds", type=int, default=3, help="rounds of (old, new, new, old)")
+    ap.add_argument("--shape", default="10,16,25", help="nb,ni,nr (nb >= 6)")
+    ap.add_argument("--batch", type=int, default=16384, help="lanes")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit(CPU_ONLY)
+    from pockit_tpu_torch.solver import _build, cuda_kkt as ck
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    libs = {"old": _build.load_source(args.old_source), "new": _build.load_source(_build.SOURCE)}
+    ptxas = {}
+    for side, src in (("old", args.old_source), ("new", _build.SOURCE)):
+        log = (_build.build(src).parent / "ptxas.log").read_text()
+        ptxas[side] = {k: v for k, v in ptxas_summary(log).items() if "<f32" in k and "apply_up" not in k}
+        print(f"ptxas {side}: {json.dumps(ptxas[side])}", flush=True)
+
+    nb, ni, nr = (int(v) for v in args.shape.split(","))
+    B, dtype = args.batch, torch.float32
+    core = ck.make_core(np.arange(nb * ni).reshape(nb, ni), np.arange(nb * ni, nb * ni + nr),
+                        nb * ni + nr)
+    Kt, b_i, b_r = kernel_inputs(core, B, dtype, seed=7, device="cuda", nb=nb, ni=ni, nr=nr)
+    kw = dict(ni_real=ni, nr_real=nr, pivot_rtol=2.0 * float(np.sqrt(np.finfo(np.float32).eps)),
+              delta_floor=0.1, attempts=3)
+    delta = torch.zeros(Kt[0].shape[-1], dtype=dtype, device="cuda")
+
+    def factor(side):
+        _build._lib = libs[side]  # the wrappers launch what load() returns
+        return ck.factor_blocks(*Kt, delta, **kw)
+
+    fac = {s: factor(s) for s in ("old", "new")}
+
+    def apply_down(side):
+        _build._lib = libs[side]
+        return ck.apply_down(fac["old"][0], fac["old"][1], Kt[1], b_i, b_r)
+
+    down = {s: apply_down(s) for s in ("old", "new")}
+    torch.cuda.synchronize()
+    ok = fac["old"][5][3, :B] > 0.5
+    if not torch.equal(ok, fac["new"][5][3, :B] > 0.5) or not torch.equal(fac["old"][6],
+                                                                           fac["new"][6]):
+        raise AssertionError("old and new factor kernels differ in flags or levels")
+    lanes = torch.nonzero(ok)[:, 0].cpu()
+    rel = {
+        "factor": max(max_err(a.cpu()[..., lanes], b.cpu()[..., lanes])[1]
+                      for a, b in zip(fac["new"], fac["old"])),
+        "apply_down": max(max_err(a.cpu()[..., lanes], b.cpu()[..., lanes])[1]
+                          for a, b in zip(down["new"], down["old"])),
+    }
+    print(f"new against old, per-lane relative: {rel}", flush=True)
+    if max(rel.values()) > 1e-4:
+        raise AssertionError("old and new kernels disagree above 1e-4 per lane")
+
+    times = {f"{k}_{s}": [] for k in ("factor", "apply_down") for s in ("old", "new")}
+    for _ in range(args.rounds):
+        for side in ("old", "new", "new", "old"):
+            times[f"factor_{side}"].append(cuda_ms(lambda: factor(side), 20))
+            times[f"apply_down_{side}"].append(cuda_ms(lambda: apply_down(side), 50))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "power": smi,
+                      "shape": {"nb": nb, "ni_p": core.ni_p, "nr_p": core.nr_p, "lanes": B},
+                      "median_ms": med, "ms": times, "lane_rel_err_new_vs_old": rel,
+                      "ptxas": ptxas}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,16 +7,22 @@ matrix, whose factorization and back-solves run as hand-written CUDA
 kernels on an NVIDIA Hopper card (``solver/cuda_kkt.py``,
 ``csrc/block_arrow_kkt.cu``).
 
-The package imports ``torch`` and never ``jax``. It shares with the
-reference only modules that are plain numpy and load no jax: the
-collocation numerics of ``pockit_tpu.numerics``, the static
-discretization data (``pockit_tpu.base.discretization``) and the mesh
-planner (``pockit_tpu.base.refine_discontinuous``).
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it keeps its own copies of the plain-numpy modules it needs, the
+collocation numerics (``numerics/``), the static discretization data
+(``base/discretization.py``) and the mesh planner
+(``base/refine_discontinuous.py``).
+
+Its entry points (``optimizer.ipm.solve``, ``solve_batch``,
+``solve_batch_drained``) run on the CUDA card unless the caller passes
+``device="cpu"`` (or CPU tensors).
 """
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = {"base", "lobatto", "transcription", "solver", "optimizer", "interop"}
+_SUBPACKAGES = {
+    "base", "lobatto", "numerics", "transcription", "solver", "optimizer", "interop",
+}
 
 
 def __getattr__(name):

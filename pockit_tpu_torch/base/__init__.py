@@ -1,3 +1,3 @@
-"""Problem-definition layer: symbolic frontend (System/Phase/Variable).
-The static discretization data is the reference's own
-(``pockit_tpu.base.discretization``, plain numpy)."""
+"""Problem-definition layer: symbolic frontend (System/Phase/Variable),
+the static discretization data (``discretization.py``) and the bang-bang
+mesh planner (``refine_discontinuous.py``), both plain numpy."""

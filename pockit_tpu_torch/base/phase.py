@@ -20,7 +20,7 @@ import numpy as np
 import sympy as sp
 
 from pockit_tpu_torch.base.bc import BcInfo, BcType, parse_boundary_condition
-from pockit_tpu.base.discretization import Discretization
+from pockit_tpu_torch.base.discretization import Discretization
 from pockit_tpu_torch.base.expr import LoweredFunc
 
 
@@ -646,7 +646,7 @@ class PhaseBase:
     ):
         """Pure planning step of :meth:`refine_discontinuous` (no phase
         mutation)."""
-        from pockit_tpu.base.refine_discontinuous import refine_discontinuous_mesh
+        from pockit_tpu_torch.base.refine_discontinuous import refine_discontinuous_mesh
 
         s = self._require_static(static_parameter)
         f_bb = self._error_estimation_data_discontinuous(variable.data, s)

@@ -299,21 +299,22 @@ class SystemBase:
     # method, lower triangle only for Hessians — exactly the surface an
     # in-process real-IPOPT cross-check consumes. Dense forms remain
     # available on ``system.compiled`` (jacobian/hessian there return
-    # (m, L) / (L, L) arrays).
+    # (m, L) / (L, L) tensors). Every callback evaluates on ``device``
+    # (the card unless ``device="cpu"``) and copies its result to the host.
     # ------------------------------------------------------------------
-    def objective(self, x) -> float:
+    def objective(self, x, device="cuda") -> float:
         """Objective of the discretized NLP at the flat vector ``x``."""
-        return float(self.compiled.objective(np.asarray(x)))
+        return float(self.compiled.objective(np.asarray(x), device=device))
 
-    def gradient(self, x) -> np.ndarray:
+    def gradient(self, x, device="cuda") -> np.ndarray:
         """Dense objective gradient (cyipopt takes gradients dense)."""
-        return np.asarray(self.compiled.gradient(np.asarray(x)))
+        return self.compiled.gradient(np.asarray(x), device=device).cpu().numpy()
 
-    def constraints(self, x) -> np.ndarray:
+    def constraints(self, x, device="cuda") -> np.ndarray:
         """Constraint values, ordered [system, per phase: dynamic, path]."""
-        return np.asarray(self.compiled.constraints(np.asarray(x)))
+        return self.compiled.constraints(np.asarray(x), device=device).cpu().numpy()
 
-    def _nlp_structure(self):
+    def _nlp_structure(self, device="cuda"):
         """Sparsity patterns (COO coordinates) of the constraint Jacobian
         and the objective/constraint Hessians, derived by evaluating the
         exact AD operators at a few generic points and taking the union
@@ -331,15 +332,19 @@ class SystemBase:
         def union(sample):
             mask = None
             for _ in range(3):
-                a = np.asarray(sample(rng)) != 0.0
+                a = sample(rng).cpu().numpy() != 0.0
                 mask = a if mask is None else (mask | a)
             return np.nonzero(mask)
 
         x_of = lambda rng: 0.25 + 0.5 * rng.standard_normal(self.L)
-        jac_rc = union(lambda r: compiled.jacobian(x_of(r)))
-        hess_o_rc = union(lambda r: compiled.hessian(x_of(r), np.zeros(m), 1.0))
+        jac_rc = union(lambda r: compiled.jacobian(x_of(r), device=device))
+        hess_o_rc = union(
+            lambda r: compiled.hessian(x_of(r), np.zeros(m), 1.0, device=device)
+        )
         hess_c_rc = union(
-            lambda r: compiled.hessian(x_of(r), r.standard_normal(m), 0.0)
+            lambda r: compiled.hessian(
+                x_of(r), r.standard_normal(m), 0.0, device=device
+            )
         )
 
         def lower(rc):
@@ -354,55 +359,58 @@ class SystemBase:
         )
         return self._nlp_structure_cache
 
-    def jacobianstructure(self) -> tuple[np.ndarray, np.ndarray]:
+    def jacobianstructure(self, device="cuda") -> tuple[np.ndarray, np.ndarray]:
         """COO coordinates of the constraint Jacobian."""
-        return self._nlp_structure()[0]
+        return self._nlp_structure(device)[0]
 
-    def jacobian(self, x) -> np.ndarray:
+    def jacobian(self, x, device="cuda") -> np.ndarray:
         """Constraint-Jacobian values as a plain 1D array, coordinates
         given by :meth:`jacobianstructure`."""
-        rows, cols = self.jacobianstructure()
-        J = np.asarray(self.compiled.jacobian(np.asarray(x)))
+        rows, cols = self.jacobianstructure(device)
+        J = self.compiled.jacobian(np.asarray(x), device=device).cpu().numpy()
         return J[rows, cols]
 
-    def hessianstructure_o(self) -> tuple[np.ndarray, np.ndarray]:
+    def hessianstructure_o(self, device="cuda") -> tuple[np.ndarray, np.ndarray]:
         """COO coordinates (lower triangle) of the objective Hessian."""
-        return self._nlp_structure()[1]
+        return self._nlp_structure(device)[1]
 
-    def hessian_o(self, x) -> np.ndarray:
+    def hessian_o(self, x, device="cuda") -> np.ndarray:
         """Objective-Hessian values at :meth:`hessianstructure_o`."""
-        rows, cols = self.hessianstructure_o()
+        rows, cols = self.hessianstructure_o(device)
         m = self.compiled.m
-        H = np.asarray(self.compiled.hessian(np.asarray(x), np.zeros(m), 1.0))
-        return H[rows, cols]
+        H = self.compiled.hessian(np.asarray(x), np.zeros(m), 1.0, device=device)
+        return H.cpu().numpy()[rows, cols]
 
-    def hessianstructure_c(self) -> tuple[np.ndarray, np.ndarray]:
+    def hessianstructure_c(self, device="cuda") -> tuple[np.ndarray, np.ndarray]:
         """COO coordinates (lower triangle) of the summed constraint
         Hessian."""
-        return self._nlp_structure()[2]
+        return self._nlp_structure(device)[2]
 
-    def hessian_c(self, x, fct_c) -> np.ndarray:
+    def hessian_c(self, x, fct_c, device="cuda") -> np.ndarray:
         """Values of ``sum_i fct_c[i] * hess(c_i)`` at
         :meth:`hessianstructure_c`."""
-        rows, cols = self.hessianstructure_c()
-        H = np.asarray(
-            self.compiled.hessian(np.asarray(x), np.asarray(fct_c), 0.0)
+        rows, cols = self.hessianstructure_c(device)
+        H = self.compiled.hessian(
+            np.asarray(x), np.asarray(fct_c), 0.0, device=device
         )
-        return H[rows, cols]
+        return H.cpu().numpy()[rows, cols]
 
-    def hessianstructure(self) -> tuple[np.ndarray, np.ndarray]:
+    def hessianstructure(self, device="cuda") -> tuple[np.ndarray, np.ndarray]:
         """COO coordinates (lower triangle) of the Lagrangian Hessian:
         objective coordinates followed by constraint coordinates
         (duplicates are summed by the consumer, as cyipopt does)."""
-        (ro, co), (rc_, cc_) = self._nlp_structure()[1], self._nlp_structure()[2]
+        (ro, co), (rc_, cc_) = self._nlp_structure(device)[1:]
         return np.concatenate([ro, rc_]), np.concatenate([co, cc_])
 
-    def hessian(self, x, fct_c, fct_o) -> np.ndarray:
+    def hessian(self, x, fct_c, fct_o, device="cuda") -> np.ndarray:
         """Lagrangian-Hessian values ``fct_o * hess(f) + hess_c(fct_c)``
         at :meth:`hessianstructure` (objective block scaled by ``fct_o``
         followed by the constraint block)."""
         return np.concatenate(
-            [self.hessian_o(x) * float(fct_o), self.hessian_c(x, fct_c)]
+            [
+                self.hessian_o(x, device) * float(fct_o),
+                self.hessian_c(x, fct_c, device),
+            ]
         )
 
     # ------------------------------------------------------------------

@@ -14,8 +14,8 @@ from typing import Iterable, Type
 import numpy as np
 
 from pockit_tpu_torch.base.bc import BcType
-from pockit_tpu.numerics import V_interpolation, D_interpolation
-from pockit_tpu.numerics.layout import lr_c
+from pockit_tpu_torch.numerics import V_interpolation, D_interpolation
+from pockit_tpu_torch.numerics.layout import lr_c
 
 
 class BatchIndexArray:

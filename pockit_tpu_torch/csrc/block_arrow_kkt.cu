@@ -6,40 +6,31 @@
 //   bak_apply_up_*   <- _apply_up_kernel    (pallas_kkt.py:403-413)
 //
 // Layout: every array is batch-LAST, (..., Bp) with the lane index
-// fastest, as pad_move in solver/cuda_kkt.py produces it. One thread owns
-// one lane (one KKT system), so neighbouring threads read neighbouring
-// addresses and every load and store is coalesced. Each thread walks the
-// interval blocks in order: that loop replaces the TPU's sequential grid
-// axis, and the Schur accumulator S lives in a global scratch buffer in
-// the same lane-fastest layout (Hopper's blocks run in no order, so no
-// carry can cross blocks).
-//
-// What bounds these kernels on the H100: bytes. The factor streams about
-// 70 KB of factor state per lane in float32 at the LQR bench shapes
-// (nb=10, ni_p=16, nr_p=32), re-reading its own columns from L1/L2, for
-// O(nb ni_p^3 + nb ni_p^2 nr_p + nr_p^3) flops per lane; the applies read
-// the factors once (~60 KB per lane) for O(nb ni_p (ni_p + nr_p)) flops.
-// Occupancy: one thread per lane gives B/128 blocks of 128 threads, i.e.
-// 16384 threads = 128 blocks at the bench batch, under one block per SM
-// on 132 SMs. Parallelism over blocks, shared-memory tiles and CUDA
-// graphs are later work.
+// fastest, as pad_move in solver/cuda_kkt.py produces it; one lane is one
+// KKT system.
 //
 // Numerics follow the Pallas bodies exactly: Jacobi equilibration
-// sc = 1/sqrt(max(diag, 1e-30)), left-looking Cholesky and triangular
+// sc = 1/sqrt(max(diag + d, 1e-30)), left-looking Cholesky and triangular
 // solves with pairwise (tree) sums in the reference's order, the Schur
-// complement in Gram form, block-local pivot acceptance. NaN must survive
-// min/max (a negative pivot surfaces as sqrt(<0) = NaN and must fail the
-// lane): fminf/fmaxf drop NaN, so nan_min/nan_max propagate it. Build
-// WITHOUT --use_fast_math: approximate sqrt/division and flush-to-zero
-// would move lanes across the pivot-ratio threshold.
+// complement in Gram form subtracted block by block in block order,
+// block-local pivot acceptance with the per-block retry ladder. NaN must
+// survive min/max (a negative pivot surfaces as sqrt(<0) = NaN and must
+// fail the lane): fminf/fmaxf drop NaN, so nan_min/nan_max propagate it.
+// Build WITHOUT --use_fast_math: approximate sqrt/division and
+// flush-to-zero would move lanes across the pivot-ratio threshold.
+// Parallelism goes across independent entries, rows, columns and blocks,
+// never inside one sum: every sum keeps the reference's order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kMaxN = 64;  // largest padded block (cuda_kkt.MAX_BLOCK)
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxN = 64;          // widest padded block (cuda_kkt.MAX_BLOCK)
+constexpr int kThreads = 128;      // apply_up's block
+constexpr int kSmemMax = 232448;   // shared memory one H100 CTA may opt into (227 KB)
+constexpr int kSmemDefault = 49152;  // without opting in (48 KB)
 
 template <typename T>
 __device__ __forceinline__ bool is_nan(T x) { return x != x; }
@@ -53,8 +44,13 @@ __device__ __forceinline__ T nan_max(T a, T b) { return (is_nan(a) || a > b) ? a
 template <typename T>
 __device__ __forceinline__ T inf_val() { return T(INFINITY); }
 
+template <typename T>
+__device__ __forceinline__ bool passes(T dmin, T dmax, T rtol) {
+  return isfinite(dmin) && isfinite(dmax) && dmin > rtol * dmax;
+}
+
 // Pairwise sum of a[0..n) in the order of structured._tree_sum (n >= 1);
-// overwrites a.
+// overwrites a. Runtime n: apply_up only.
 template <typename T>
 __device__ T tree_sum(T* a, int n) {
   while (n > 1) {
@@ -66,6 +62,618 @@ __device__ T tree_sum(T* a, int n) {
   return a[0];
 }
 
+// The same sum for a compile-time count N over a register array: fully
+// unrolled, so the array never leaves registers.
+template <int N, typename T, int M>
+__device__ __forceinline__ T tree_sum_n(T (&a)[M]) {
+  static_assert(N >= 1 && N <= M, "tree_sum_n: bad count");
+  if constexpr (N == 1) {
+    return a[0];
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) a[j] = a[2 * j] + a[2 * j + 1];
+    if constexpr ((N & 1) != 0) a[N / 2] = a[N - 1];
+    return tree_sum_n<N / 2 + (N & 1)>(a);
+  }
+}
+
+// The same sum, streamed one term at a time for a run-time count: a
+// binary counter of partial sums (level l holds a sum of 2^l terms), which
+// builds exactly the tree of _tree_sum when the levels are folded from
+// the lowest up at the end. Every index is compile-time: registers only.
+template <typename T>
+struct TreeAcc {
+  static constexpr int kLevels = 7;  // up to 127 terms
+  T st[kLevels];
+  int n = 0;
+  __device__ __forceinline__ void push(T p) {
+    T carry = p;
+    bool placed = false;
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) {
+      if (!placed) {
+        if ((n >> l) & 1) {
+          carry = st[l] + carry;
+        } else {
+          st[l] = carry;
+          placed = true;
+        }
+      }
+    }
+    ++n;
+  }
+  __device__ __forceinline__ T total() const {
+    T acc = T(0);
+    bool have = false;
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) {
+      if ((n >> l) & 1) {
+        acc = have ? st[l] + acc : st[l];
+        have = true;
+      }
+    }
+    return acc;
+  }
+};
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// f(Int<B>{}), ..., f(Int<E-1>{}): a loop whose index is a constant.
+template <int B, int E, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(Int<B>{});
+    static_for<B + 1, E>(f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// factor: one warp per lane, TL lanes per CTA
+// ---------------------------------------------------------------------------
+
+// Most lanes per CTA: one 32-byte sector of each element (8 float, 4
+// double). The launcher takes fewer when that tile would not fit in shared
+// memory (wide blocks).
+template <typename T>
+__host__ __device__ constexpr int tile_lanes() { return 32 / (int)sizeof(T); }
+
+// Per-lane shared-memory layout of the factor, in elements. Rows of the
+// matrices a worker walks by row (the Cholesky's) are padded to an odd
+// length so that 32 workers reading 32 rows hit 32 banks. The same count
+// is cuda_kkt.factor_lane_bytes.
+struct FactorLayout {
+  int ldi, ldr, a, sc, x, s, scr, slot, lane_elems;
+  __host__ __device__ FactorLayout(int ni, int nr) {
+    ldi = ni + 1;
+    ldr = nr + 1;
+    a = 0;                 // K_ii[b], factored in place into L_i[b]
+    sc = a + ni * ldi;     // sc_i[b]
+    x = sc + ni;           // K_ir[b] -> t = L^{-1} sc K_ir -> X_ir[b]
+    s = x + ni * nr;       // S, then factored in place into L_r
+    scr = s + nr * ldr;    // sc_r
+    slot = scr + nr;       // the current pivot, shared by the warp
+    lane_elems = slot + 4;
+  }
+};
+
+// Visit the (rows x cols) elements of a CTA's tl lanes (32 tl threads):
+// thread t takes lane t % tl, so neighbouring threads touch neighbouring
+// lanes of one element (one coalesced sector), and element t / tl + 32 k.
+template <typename F>
+__device__ __forceinline__ void for_tile(int tl, int rows, int cols, F&& f) {
+  const int l = threadIdx.x % tl;
+  int e = threadIdx.x / tl;
+  int r = e / cols, c = e % cols;
+  const int n = rows * cols;
+  for (; e < n; e += kWarp) {
+    f(l, e, r, c);
+    c += kWarp;
+    while (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// One lane's (rows x cols) matrix from device memory into shared memory,
+// read by its own warp: the retry ladder's rare path.
+template <typename T>
+__device__ void reload_lane(T* dst, int ld, const T* g, int rows, int cols, int lane, int Bp,
+                            int w) {
+  for (int e = w; e < rows * cols; e += kWarp)
+    dst[(e / cols) * ld + e % cols] = g[(size_t)e * Bp + lane];
+  __syncwarp();
+}
+
+// Left-looking Cholesky of (A + d I) with Jacobi equilibration, in place
+// (A (NI, NI) with row stride NI+1 becomes L; the strict upper part is
+// written as the reference computes it). Worker i owns row i; column k's
+// pivot passes through `slot`. Returns the pivot extrema over rows < n_real
+// (the same in every worker).
+template <int NI, typename T>
+__device__ void chol_interior(T* A, T* sc, T* slot, int n_real, T d, int w, T& dmin, T& dmax) {
+  constexpr int ld = NI + 1;
+  if (w < NI) sc[w] = T(1) / sqrt(nan_max(A[w * ld + w] + d, T(1e-30)));
+  __syncwarp();
+  dmin = inf_val<T>();
+  dmax = -inf_val<T>();
+  const int i = w;
+  const bool row = i < NI;
+  static_for<0, NI>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    T vi = T(0);
+    if (row) {
+      vi = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
+      if constexpr (k > 0) {
+        T terms[k];
+#pragma unroll
+        for (int j = 0; j < k; ++j) terms[j] = A[i * ld + j] * A[k * ld + j];
+        vi = vi - tree_sum_n<k>(terms);
+      }
+      if (i == k) *slot = vi;
+    }
+    __syncwarp();
+    const T dk = sqrt(*slot);
+    if (k < n_real) {
+      dmin = nan_min(dmin, dk);
+      dmax = nan_max(dmax, dk);
+    }
+    const T inv = T(1) / dk;
+    if (row) A[i * ld + k] = vi * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+    __syncwarp();
+  });
+}
+
+// The same for a run-time size nn <= 64 (the reduced block, and interiors
+// of a size the kernel is not built for): worker w owns rows w and w + 32;
+// the column dots stream through TreeAcc.
+template <typename T>
+__device__ void chol_rt(T* A, int ld, int nn, int n_real, T d, T* sc, T* slot, int w, T& dmin,
+                        T& dmax) {
+  for (int i = w; i < nn; i += kWarp) sc[i] = T(1) / sqrt(nan_max(A[i * ld + i] + d, T(1e-30)));
+  __syncwarp();
+  dmin = inf_val<T>();
+  dmax = -inf_val<T>();
+  for (int k = 0; k < nn; ++k) {
+    T v[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = w + kWarp * q;
+      v[q] = T(0);
+      if (i < nn) {
+        T vi = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
+        if (k) {
+          TreeAcc<T> acc;
+          for (int j = 0; j < k; ++j) acc.push(A[i * ld + j] * A[k * ld + j]);
+          vi = vi - acc.total();
+        }
+        v[q] = vi;
+        if (i == k) *slot = vi;
+      }
+    }
+    __syncwarp();
+    const T dk = sqrt(*slot);
+    if (k < n_real) {
+      dmin = nan_min(dmin, dk);
+      dmax = nan_max(dmax, dk);
+    }
+    const T inv = T(1) / dk;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int i = w + kWarp * q;
+      if (i < nn) A[i * ld + k] = v[q] * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+    }
+    __syncwarp();
+  }
+}
+
+// t = L^{-1} (sc K_ir), column by column (worker w owns columns w + 32 q),
+// in place over X (NI, nr).
+template <int NI, typename T>
+__device__ void fwd_sub_cols(const T* L, const T* sc, T* X, int nr, int w) {
+  constexpr int ld = NI + 1;
+  for (int c = w; c < nr; c += kWarp) {
+    T t[NI];
+    static_for<0, NI>([&](auto kc) {
+      constexpr int k = decltype(kc)::value;
+      T v = X[k * nr + c] * sc[k];
+      if constexpr (k > 0) {
+        T terms[k];
+#pragma unroll
+        for (int j = 0; j < k; ++j) terms[j] = t[j] * L[k * ld + j];
+        v = v - tree_sum_n<k>(terms);
+      }
+      t[k] = v / L[k * ld + k];
+    });
+#pragma unroll
+    for (int k = 0; k < NI; ++k) X[k * nr + c] = t[k];
+  }
+}
+
+// S -= t^T t in Gram form: worker w owns columns w + 32 q of S, each entry
+// a tree sum over the NI rows of t.
+template <int NI, typename T>
+__device__ void gram_update(const T* X, T* S, int nr, int lds, int w) {
+  for (int c = w; c < nr; c += kWarp) {
+    T tc[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) tc[i] = X[i * nr + c];
+    for (int r = 0; r < nr; ++r) {
+      T terms[NI];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) terms[i] = tc[i] * X[i * nr + r];
+      S[r * lds + c] = S[r * lds + c] - tree_sum_n<NI>(terms);
+    }
+  }
+}
+
+// X = sc * L^{-T} t (bottom row first), = K_ii^{-1} K_ir, in place.
+template <int NI, typename T>
+__device__ void bwd_sub_cols(const T* L, const T* sc, T* X, int nr, int w) {
+  constexpr int ld = NI + 1;
+  for (int c = w; c < nr; c += kWarp) {
+    T x[NI];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) x[k] = X[k * nr + c];
+    static_for<0, NI>([&](auto kc) {
+      constexpr int k = NI - 1 - decltype(kc)::value;
+      T v = x[k];
+      if constexpr (k < NI - 1) {
+        T terms[NI - 1 - k];
+#pragma unroll
+        for (int j = k + 1; j < NI; ++j) terms[j - k - 1] = x[j] * L[j * ld + k];
+        v = v - tree_sum_n<NI - 1 - k>(terms);
+      }
+      x[k] = v / L[k * ld + k];
+    });
+#pragma unroll
+    for (int k = 0; k < NI; ++k) X[k * nr + c] = x[k] * sc[k];
+  }
+}
+
+// The three column sweeps above for a run-time interior size ni <= 64 (L
+// with row stride ld), in place in shared memory: each dot streams through
+// TreeAcc, so every sum is the same tree.
+template <typename T>
+__device__ void fwd_sub_cols_rt(const T* L, int ld, const T* sc, T* X, int ni, int nr, int w) {
+  for (int c = w; c < nr; c += kWarp)
+    for (int k = 0; k < ni; ++k) {
+      T v = X[k * nr + c] * sc[k];
+      if (k) {
+        TreeAcc<T> acc;
+        for (int j = 0; j < k; ++j) acc.push(X[j * nr + c] * L[k * ld + j]);
+        v = v - acc.total();
+      }
+      X[k * nr + c] = v / L[k * ld + k];
+    }
+}
+
+template <typename T>
+__device__ void gram_update_rt(const T* X, T* S, int ni, int nr, int lds, int w) {
+  for (int c = w; c < nr; c += kWarp)
+    for (int r = 0; r < nr; ++r) {
+      TreeAcc<T> acc;
+      for (int i = 0; i < ni; ++i) acc.push(X[i * nr + c] * X[i * nr + r]);
+      S[r * lds + c] = S[r * lds + c] - acc.total();
+    }
+}
+
+template <typename T>
+__device__ void bwd_sub_cols_rt(const T* L, int ld, const T* sc, T* X, int ni, int nr, int w) {
+  for (int c = w; c < nr; c += kWarp) {
+    for (int k = ni - 1; k >= 0; --k) {
+      T v = X[k * nr + c];
+      if (k < ni - 1) {
+        TreeAcc<T> acc;
+        for (int j = k + 1; j < ni; ++j) acc.push(X[j * nr + c] * L[j * ld + k]);
+        v = v - acc.total();
+      }
+      X[k * nr + c] = v / L[k * ld + k];
+    }
+    for (int k = 0; k < ni; ++k) X[k * nr + c] = X[k * nr + c] * sc[k];
+  }
+}
+
+// Replaces _factor_kernel (pallas_kkt.py:160).
+//
+// Bound: bytes. At the LQR bench shapes (float32, nb=10, ni_p=16,
+// nr_p=32) it must read and write 70,464 bytes per lane, 1.15 GB at
+// B=16384, 0.344 ms at 3.35 TB/s, against about 0.6 MFLOP per lane
+// (0.15 ms at 67 TFLOP/s).
+//
+// Design: one warp per lane and TL lanes per CTA (8 float, 4 double, fewer
+// where that tile does not fit in shared memory). Per interval block the
+// CTA loads the TL lanes' K_ii[b] and K_ir[b] into shared memory in
+// 32-byte coalesced sectors (one element of all TL lanes), each warp
+// factors its lane there and writes L_i, sc_i and X_ir back the same way:
+// every input is read once and every output written once, and nothing of
+// the O(n^3) work touches device memory. Inside a warp the work splits
+// over independent entries: the Cholesky by rows, t = L^{-1} sc K_ir and
+// its back-solve by columns, the Gram update by columns of S. S stays in
+// shared memory across the blocks, and block b's t^T t is subtracted
+// before block b+1's, as in the reference. The interior size NI is a
+// template parameter for the built sizes (8, 16, 24, 32), so every
+// per-thread array is indexed at compile time and stays in registers;
+// NI = 0 takes any other interior size up to 64 at run time, with the
+// sweeps in shared memory (the *_rt functions). Retries reload the block's
+// input for that lane alone (the factorization is in place). The reduced
+// block (run-time nr_p <= 64) is factored at the end from S; when retries
+// are allowed S is first saved to s_scr.
+// Several CTAs per SM overlap one CTA's loads with another's compute:
+// the launch bound asks for 3 (the float tile takes 60.5 KB of shared
+// memory at the bench shapes, and ptxas then fits 80 registers with a few
+// spills), which measured 6% faster than 2 CTAs at 128 registers.
+template <typename T, int NI>
+__global__ void __launch_bounds__(kWarp * tile_lanes<T>(), 3)
+factor_kernel(const T* __restrict__ kii, const T* __restrict__ kir, const T* __restrict__ krr,
+              const T* __restrict__ delta, T* __restrict__ li, T* __restrict__ sci,
+              T* __restrict__ xir, T* __restrict__ lr, T* __restrict__ scr, T* __restrict__ piv,
+              T* __restrict__ dblk, T* __restrict__ s_scr, int nb, int ni_rt, int nr,
+              int ni_real, int nr_real, int Bp, T rtol, T floor_d, int attempts) {
+  const int ni = NI > 0 ? NI : ni_rt;
+  const int TL = blockDim.x / kWarp;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const FactorLayout lay(ni, nr);
+  const int LE = lay.lane_elems;
+  const int w = threadIdx.x % kWarp, tl = threadIdx.x / kWarp;
+  const int lane0 = blockIdx.x * TL, lane = lane0 + tl;
+  const bool active = lane < Bp;
+  T* my = smem + tl * LE;
+  T* A = my + lay.a;
+  T* sc = my + lay.sc;
+  T* X = my + lay.x;
+  T* S = my + lay.s;
+  T* scR = my + lay.scr;
+  T* slot = my + lay.slot;
+  // the interior Cholesky of A + d I, in place
+  auto chol = [&](T d, T& dmin, T& dmax) {
+    if constexpr (NI > 0)
+      chol_interior<NI>(A, sc, slot, ni_real, d, w, dmin, dmax);
+    else
+      chol_rt(A, lay.ldi, ni, ni_real, d, sc, slot, w, dmin, dmax);
+  };
+
+  // S = K_rr + base_d I, accumulated below in Gram form
+  for_tile(TL, nr, nr, [&](int l, int e, int r, int c) {
+    const int ln = lane0 + l;
+    if (ln < Bp)
+      smem[l * LE + lay.s + r * lay.ldr + c] =
+          krr[(size_t)e * Bp + ln] + (r == c ? T(1) : T(0)) * delta[ln];
+  });
+
+  const T base_d = active ? delta[lane] : T(0);
+  T piv_min = inf_val<T>(), piv_max = -inf_val<T>();
+  T d_up = base_d;
+  T ok_all = T(1);
+  for (int b = 0; b < nb; ++b) {
+    const T* kii_b = kii + (size_t)b * ni * ni * Bp;
+    const T* kir_b = kir + (size_t)b * ni * nr * Bp;
+    __syncthreads();  // the previous block's outputs have left shared memory
+    for_tile(TL, ni, ni, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) smem[l * LE + lay.a + r * lay.ldi + c] = kii_b[(size_t)e * Bp + lane0 + l];
+    });
+    for_tile(TL, ni, nr, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) smem[l * LE + lay.x + e] = kir_b[(size_t)e * Bp + lane0 + l];
+    });
+    __syncthreads();
+    if (active) {
+      T dmin, dmax;
+      chol(base_d, dmin, dmax);
+      T d = base_d;
+      for (int a = 0; a < attempts - 1; ++a) {
+        if (!passes(dmin, dmax, rtol)) {
+          d = d < floor_d ? floor_d : d * T(10);
+          reload_lane(A, lay.ldi, kii_b, ni, ni, lane, Bp, w);
+          chol(d, dmin, dmax);
+        }
+      }
+      // block-local acceptance: each block judged at its own final delta
+      ok_all = ok_all * (passes(dmin, dmax, rtol) ? T(1) : T(0));
+      if (w == 0) dblk[(size_t)b * Bp + lane] = d;
+      if constexpr (NI > 0) fwd_sub_cols<NI>(A, sc, X, nr, w);
+      else fwd_sub_cols_rt(A, lay.ldi, sc, X, ni, nr, w);
+      __syncwarp();
+      if constexpr (NI > 0) gram_update<NI>(X, S, nr, lay.ldr, w);
+      else gram_update_rt(X, S, ni, nr, lay.ldr, w);
+      __syncwarp();  // every column of t is read before X overwrites it
+      if constexpr (NI > 0) bwd_sub_cols<NI>(A, sc, X, nr, w);
+      else bwd_sub_cols_rt(A, lay.ldi, sc, X, ni, nr, w);
+      piv_min = nan_min(piv_min, dmin);
+      piv_max = nan_max(piv_max, dmax);
+      d_up = nan_max(d_up, d);
+    }
+    __syncthreads();
+    T* li_b = li + (size_t)b * ni * ni * Bp;
+    T* sci_b = sci + (size_t)b * ni * Bp;
+    T* xir_b = xir + (size_t)b * ni * nr * Bp;
+    for_tile(TL, ni, ni, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) li_b[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.a + r * lay.ldi + c];
+    });
+    for_tile(TL, 1, ni, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) sci_b[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.sc + e];
+    });
+    for_tile(TL, ni, nr, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) xir_b[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.x + e];
+    });
+  }
+
+  // reduced block: the base delta is already in S; retries add extra and
+  // refactor from the saved S
+  __syncthreads();
+  if (attempts > 1) {
+    for_tile(TL, nr, nr, [&](int l, int e, int r, int c) {
+      if (lane0 + l < Bp) s_scr[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.s + r * lay.ldr + c];
+    });
+    __syncthreads();
+  }
+  if (active) {
+    T dmin, dmax;
+    chol_rt(S, lay.ldr, nr, nr_real, T(0), scR, slot, w, dmin, dmax);
+    T d = T(0);
+    for (int a = 0; a < attempts - 1; ++a) {
+      if (!passes(dmin, dmax, rtol)) {
+        d = d < floor_d ? floor_d : d * T(10);
+        reload_lane(S, lay.ldr, s_scr, nr, nr, lane, Bp, w);
+        chol_rt(S, lay.ldr, nr, nr_real, d, scR, slot, w, dmin, dmax);
+      }
+    }
+    if (w == 0) {
+      const bool ok_r = passes(dmin, dmax, rtol);
+      dblk[(size_t)nb * Bp + lane] = base_d + d;
+      const T pmin = nan_min(piv_min, dmin);
+      const T pmax = nan_max(piv_max, dmax);
+      const bool finite = isfinite(pmin) && isfinite(pmax);
+      piv[lane] = finite ? pmin : T(NAN);
+      piv[(size_t)Bp + lane] = finite ? pmax : T(NAN);
+      piv[(size_t)2 * Bp + lane] = nan_max(d_up, base_d + d);
+      piv[(size_t)3 * Bp + lane] = ok_all * (ok_r ? T(1) : T(0));
+    }
+  }
+  __syncthreads();
+  for_tile(TL, nr, nr, [&](int l, int e, int r, int c) {
+    if (lane0 + l < Bp) lr[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.s + r * lay.ldr + c];
+  });
+  for_tile(TL, 1, nr, [&](int l, int e, int r, int c) {
+    if (lane0 + l < Bp) scr[(size_t)e * Bp + lane0 + l] = smem[l * LE + lay.scr + e];
+  });
+}
+
+// ---------------------------------------------------------------------------
+// apply_down: one thread per (lane, block)
+// ---------------------------------------------------------------------------
+
+// Replaces _apply_down_kernel (pallas_kkt.py:385).
+//
+// Bound: bytes. At the bench shapes it must read L_i, sc_i, K_ir, b_i and
+// b_r and write x_bi and r_red, 32,896 bytes per lane in float32: 0.54 GB
+// at B=16384, 0.161 ms at 3.35 TB/s, for 16 kFLOP per lane.
+//
+// Design: a CTA owns 32 lanes and bw warps (bw = blockDim.y, up to 16).
+// Warp w solves block b = b0 + w of its 32 lanes, so the nb interior
+// solves of a lane run in parallel and every load of L_i and K_ir is one
+// 128-byte (float) row of 32 lanes: x_bi = sc (L L^T)^{-1} sc b_i with x
+// in registers (NI is a template parameter), then the block's partial
+// dots s_b[c] = sum_i K_ir[b,i,c] x_bi[i], each summed in i order, into
+// shared memory. After each chunk of bw blocks the CTA applies
+// r_red[c] -= s_b[c] in block order, so r_red = b_r - s_0 - s_1 - ... as
+// in the reference. NI = 0 takes any other interior size up to 64 at run
+// time, with x in shared memory and the dots streamed through TreeAcc.
+template <typename T, int NI>
+__global__ void __launch_bounds__(512)
+apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
+                  const T* __restrict__ kir, const T* __restrict__ bi,
+                  const T* __restrict__ br, T* __restrict__ xbi, T* __restrict__ rred,
+                  int nb, int ni_rt, int nr, int Bp) {
+  const int ni = NI > 0 ? NI : ni_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int l = threadIdx.x, w = threadIdx.y, bw = blockDim.y;
+  T* R = reinterpret_cast<T*>(smem_raw);  // r_red   [nr][32]
+  T* P = R + nr * kWarp;                  // s_b     [bw][nr][32]
+  T* Xs = P + bw * nr * kWarp;            // x (NI = 0 only) [bw][ni][32]
+  const int lane = blockIdx.x * kWarp + l;
+  const bool active = lane < Bp;
+  // thread (l, w) owns r_red[c] for c = w + bw q, from start to end
+  if (active)
+    for (int c = w; c < nr; c += bw) R[c * kWarp + l] = br[(size_t)c * Bp + lane];
+  for (int b0 = 0; b0 < nb; b0 += bw) {
+    const int b = b0 + w;
+    if constexpr (NI == 0) {
+      if (active && b < nb) {
+        const T* L = li + (size_t)b * ni * ni * Bp + lane;
+        const T* s = sci + (size_t)b * ni * Bp + lane;
+        T* x = Xs + w * ni * kWarp + l;  // x[k] at x[k * 32]
+        for (int k = 0; k < ni; ++k) x[k * kWarp] = bi[((size_t)b * ni + k) * Bp + lane];
+        for (int k = 0; k < ni; ++k) {
+          T v = x[k * kWarp] * s[(size_t)k * Bp];
+          if (k) {
+            TreeAcc<T> acc;
+            for (int j = 0; j < k; ++j) acc.push(x[j * kWarp] * L[(size_t)(k * ni + j) * Bp]);
+            v = v - acc.total();
+          }
+          x[k * kWarp] = v / L[(size_t)(k * ni + k) * Bp];
+        }
+        for (int k = ni - 1; k >= 0; --k) {
+          T v = x[k * kWarp];
+          if (k < ni - 1) {
+            TreeAcc<T> acc;
+            for (int j = k + 1; j < ni; ++j) acc.push(x[j * kWarp] * L[(size_t)(j * ni + k) * Bp]);
+            v = v - acc.total();
+          }
+          x[k * kWarp] = v / L[(size_t)(k * ni + k) * Bp];
+        }
+        for (int k = 0; k < ni; ++k) {
+          x[k * kWarp] = x[k * kWarp] * s[(size_t)k * Bp];
+          xbi[((size_t)b * ni + k) * Bp + lane] = x[k * kWarp];
+        }
+        const T* K = kir + (size_t)b * ni * nr * Bp + lane;
+        for (int c = 0; c < nr; ++c) {
+          T acc = T(0);
+          for (int i = 0; i < ni; ++i) acc = acc + K[((size_t)i * nr + c) * Bp] * x[i * kWarp];
+          P[(w * nr + c) * kWarp + l] = acc;
+        }
+      }
+    } else if (active && b < nb) {
+      const T* L = li + (size_t)b * NI * NI * Bp + lane;  // L[k][j] at L[(k NI + j) Bp]
+      const T* s = sci + (size_t)b * NI * Bp + lane;
+      T x[NI];
+#pragma unroll
+      for (int k = 0; k < NI; ++k) x[k] = bi[((size_t)b * NI + k) * Bp + lane];
+      static_for<0, NI>([&](auto kc) {
+        constexpr int k = decltype(kc)::value;
+        T v = x[k] * s[(size_t)k * Bp];
+        if constexpr (k > 0) {
+          T terms[k];
+#pragma unroll
+          for (int j = 0; j < k; ++j) terms[j] = x[j] * L[(size_t)(k * NI + j) * Bp];
+          v = v - tree_sum_n<k>(terms);
+        }
+        x[k] = v / L[(size_t)(k * NI + k) * Bp];
+      });
+      static_for<0, NI>([&](auto kc) {
+        constexpr int k = NI - 1 - decltype(kc)::value;
+        T v = x[k];
+        if constexpr (k < NI - 1) {
+          T terms[NI - 1 - k];
+#pragma unroll
+          for (int j = k + 1; j < NI; ++j) terms[j - k - 1] = x[j] * L[(size_t)(j * NI + k) * Bp];
+          v = v - tree_sum_n<NI - 1 - k>(terms);
+        }
+        x[k] = v / L[(size_t)(k * NI + k) * Bp];
+      });
+#pragma unroll
+      for (int k = 0; k < NI; ++k) {
+        x[k] = x[k] * s[(size_t)k * Bp];
+        xbi[((size_t)b * NI + k) * Bp + lane] = x[k];
+      }
+      const T* K = kir + (size_t)b * NI * nr * Bp + lane;
+      for (int c = 0; c < nr; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) acc = acc + K[((size_t)i * nr + c) * Bp] * x[i];
+        P[(w * nr + c) * kWarp + l] = acc;
+      }
+    }
+    __syncthreads();
+    if (active)
+      for (int c = w; c < nr; c += bw) {
+        T r = R[c * kWarp + l];
+        for (int q = 0; q < bw && b0 + q < nb; ++q) r = r - P[(q * nr + c) * kWarp + l];
+        R[c * kWarp + l] = r;
+      }
+    __syncthreads();
+  }
+  if (active)
+    for (int c = w; c < nr; c += bw) rred[(size_t)c * Bp + lane] = R[c * kWarp + l];
+}
+
+// ---------------------------------------------------------------------------
+// apply_up: one thread per lane (not yet redesigned)
+// ---------------------------------------------------------------------------
+
 // Strided view of one lane: element e of a batch-last array.
 template <typename T>
 struct Lane {
@@ -73,65 +681,6 @@ struct Lane {
   int s;
   __device__ __forceinline__ T& operator[](int e) const { return p[(size_t)e * s]; }
 };
-
-template <typename T>
-__device__ __forceinline__ bool passes(T dmin, T dmax, T rtol) {
-  return isfinite(dmin) && isfinite(dmax) && dmin > rtol * dmax;
-}
-
-// Left-looking Cholesky of (A + d I) with Jacobi equilibration, A (nn, nn).
-// Writes L (nn, nn; the strict upper part as the reference computes it)
-// and sc (nn); returns the pivot extrema over rows < n_real.
-template <typename T>
-__device__ void chol(Lane<T> A, int nn, int n_real, T d, Lane<T> L, Lane<T> sc,
-                     T& dmin, T& dmax) {
-  T v[kMaxN];
-  T terms[kMaxN];
-  for (int k = 0; k < nn; ++k)
-    sc[k] = T(1) / sqrt(nan_max(A[k * nn + k] + d, T(1e-30)));
-  dmin = inf_val<T>();
-  dmax = -inf_val<T>();
-  for (int k = 0; k < nn; ++k) {
-    const T sck = sc[k];
-    for (int i = 0; i < nn; ++i) {
-      T vi = (A[i * nn + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sck;
-      if (k) {
-        for (int j = 0; j < k; ++j) terms[j] = L[i * nn + j] * L[k * nn + j];
-        vi = vi - tree_sum(terms, k);
-      }
-      v[i] = vi;
-    }
-    const T dk = sqrt(v[k]);
-    if (k < n_real) {
-      dmin = nan_min(dmin, dk);
-      dmax = nan_max(dmax, dk);
-    }
-    const T inv = T(1) / dk;
-    for (int i = 0; i < nn; ++i) {
-      const T mask = i > k ? T(1) : T(0);
-      const T row_k = i == k ? T(1) : T(0);
-      L[i * nn + k] = v[i] * inv * mask + row_k * dk;
-    }
-  }
-}
-
-// chol plus the block-local retry ladder: a failing factorization bumps d
-// (to delta_floor, then x10) and refactors, up to attempts-1 times.
-// Returns the delta actually factored.
-template <typename T>
-__device__ T attempted_chol(Lane<T> A, int nn, int n_real, T base_d, T rtol,
-                            T floor_d, int attempts, Lane<T> L, Lane<T> sc,
-                            T& dmin, T& dmax) {
-  chol(A, nn, n_real, base_d, L, sc, dmin, dmax);
-  T d = base_d;
-  for (int a = 0; a < attempts - 1; ++a) {
-    if (!passes(dmin, dmax, rtol)) {
-      d = d < floor_d ? floor_d : d * T(10);
-      chol(A, nn, n_real, d, L, sc, dmin, dmax);
-    }
-  }
-  return d;
-}
 
 // x <- sc * (L L^T)^{-1} (sc * x) for one vector of length n (in place).
 template <typename T>
@@ -156,131 +705,10 @@ __device__ void blk_solve(Lane<T> L, Lane<T> sc, int n, T* x) {
   for (int k = 0; k < n; ++k) x[k] = x[k] * sc[k];
 }
 
-// Replaces _factor_kernel (pallas_kkt.py:160). Bound by memory traffic:
-// ~70 KB of factor state per lane in float32 at the bench shapes, with
-// the columns re-read from L1/L2, for O(nb ni^3 + nb ni^2 nr + nr^3) flops.
-// One thread per lane: B=16384 gives 128 blocks of 128 threads, under one
-// block per SM of the H100's 132.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-factor_kernel(const T* __restrict__ kii, const T* __restrict__ kir,
-              const T* __restrict__ krr, const T* __restrict__ delta,
-              T* li, T* sci, T* xir, T* lr, T* scr, T* piv, T* dblk, T* s_scr,
-              int nb, int ni_p, int nr_p, int ni_real, int nr_real, int Bp,
-              T rtol, T floor_d, int attempts) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= Bp) return;
-  auto at = [&](const T* p) { return Lane<T>{const_cast<T*>(p) + lane, Bp}; };
-  T terms[kMaxN];
-
-  const T base_d = delta[lane];
-  T piv_min = inf_val<T>(), piv_max = -inf_val<T>();
-  T d_up = base_d;
-  T ok_all = T(1);
-
-  // S = K_rr + base_d I, accumulated below in Gram form
-  Lane<T> S = at(s_scr), Krr = at(krr);
-  for (int r = 0; r < nr_p; ++r)
-    for (int c = 0; c < nr_p; ++c)
-      S[r * nr_p + c] = Krr[r * nr_p + c] + (r == c ? T(1) : T(0)) * base_d;
-
-  Lane<T> Db = at(dblk);
-  for (int b = 0; b < nb; ++b) {
-    Lane<T> A = at(kii + (size_t)b * ni_p * ni_p * Bp);
-    Lane<T> L = at(li + (size_t)b * ni_p * ni_p * Bp);
-    Lane<T> sc = at(sci + (size_t)b * ni_p * Bp);
-    Lane<T> Kb = at(kir + (size_t)b * ni_p * nr_p * Bp);
-    Lane<T> X = at(xir + (size_t)b * ni_p * nr_p * Bp);
-    T dmin, dmax;
-    const T d_b = attempted_chol(A, ni_p, ni_real, base_d, rtol, floor_d,
-                                 attempts, L, sc, dmin, dmax);
-    // block-local acceptance: each block judged at its own final delta
-    ok_all = ok_all * (passes(dmin, dmax, rtol) ? T(1) : T(0));
-    Db[b] = d_b;
-
-    // t = L^{-1} (sc K_ir), written into X's slot
-    for (int c = 0; c < nr_p; ++c) {
-      for (int k = 0; k < ni_p; ++k) {
-        T v = Kb[k * nr_p + c] * sc[k];
-        if (k) {
-          for (int j = 0; j < k; ++j) terms[j] = X[j * nr_p + c] * L[k * ni_p + j];
-          v = v - tree_sum(terms, k);
-        }
-        X[k * nr_p + c] = v / L[k * ni_p + k];
-      }
-    }
-    // S -= t^T t (Gram form), each entry a tree sum over the ni_p rows
-    for (int r = 0; r < nr_p; ++r) {
-      for (int c = 0; c < nr_p; ++c) {
-        for (int i = 0; i < ni_p; ++i) terms[i] = X[i * nr_p + c] * X[i * nr_p + r];
-        S[r * nr_p + c] = S[r * nr_p + c] - tree_sum(terms, ni_p);
-      }
-    }
-    // X = sc * L^{-T} t (in place, bottom row first), = K_ii^{-1} K_ir
-    for (int c = 0; c < nr_p; ++c) {
-      for (int k = ni_p - 1; k >= 0; --k) {
-        T v = X[k * nr_p + c];
-        if (k < ni_p - 1) {
-          for (int j = k + 1; j < ni_p; ++j)
-            terms[j - k - 1] = X[j * nr_p + c] * L[j * ni_p + k];
-          v = v - tree_sum(terms, ni_p - 1 - k);
-        }
-        X[k * nr_p + c] = v / L[k * ni_p + k];
-      }
-      for (int k = 0; k < ni_p; ++k) X[k * nr_p + c] = X[k * nr_p + c] * sc[k];
-    }
-    piv_min = nan_min(piv_min, dmin);
-    piv_max = nan_max(piv_max, dmax);
-    d_up = nan_max(d_up, d_b);
-  }
-
-  // reduced block: the base delta is already in S; retries add extra
-  T dmin, dmax;
-  const T d_r = attempted_chol(S, nr_p, nr_real, T(0), rtol, floor_d, attempts,
-                               at(lr), at(scr), dmin, dmax);
-  const bool ok_r = passes(dmin, dmax, rtol);
-  Db[nb] = base_d + d_r;
-  const T pmin = nan_min(piv_min, dmin);
-  const T pmax = nan_max(piv_max, dmax);
-  const bool finite = isfinite(pmin) && isfinite(pmax);
-  Lane<T> P = at(piv);
-  P[0] = finite ? pmin : T(NAN);
-  P[1] = finite ? pmax : T(NAN);
-  P[2] = nan_max(d_up, base_d + d_r);
-  P[3] = ok_all * (ok_r ? T(1) : T(0));
-}
-
-// Replaces _apply_down_kernel (pallas_kkt.py:385). Bound by reading L_i and
-// K_ir once (~30 KB per lane in float32); one thread per lane as above.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
-                  const T* __restrict__ kir, const T* __restrict__ bi,
-                  const T* __restrict__ br, T* xbi, T* rred,
-                  int nb, int ni_p, int nr_p, int Bp) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= Bp) return;
-  auto at = [&](const T* p) { return Lane<T>{const_cast<T*>(p) + lane, Bp}; };
-  T x[kMaxN];
-  Lane<T> R = at(rred), Br = at(br), Bi = at(bi), Xo = at(xbi);
-  for (int r = 0; r < nr_p; ++r) R[r] = Br[r];
-  for (int b = 0; b < nb; ++b) {
-    for (int k = 0; k < ni_p; ++k) x[k] = Bi[b * ni_p + k];
-    blk_solve(at(li + (size_t)b * ni_p * ni_p * Bp), at(sci + (size_t)b * ni_p * Bp),
-              ni_p, x);
-    for (int k = 0; k < ni_p; ++k) Xo[b * ni_p + k] = x[k];
-    // r_red -= K_ir^T x_bi
-    Lane<T> Kb = at(kir + (size_t)b * ni_p * nr_p * Bp);
-    for (int c = 0; c < nr_p; ++c) {
-      T s = T(0);
-      for (int i = 0; i < ni_p; ++i) s = s + Kb[i * nr_p + c] * x[i];
-      R[c] = R[c] - s;
-    }
-  }
-}
-
 // Replaces _apply_up_kernel (pallas_kkt.py:403). Bound by reading X_ir and
-// L_r once (~25 KB per lane in float32); one thread per lane as above.
+// L_r once (26,240 bytes per lane in float32 at the bench shapes). One
+// thread per lane, walking the blocks in order, with its scratch in local
+// memory: the next kernel to redesign.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 apply_up_kernel(const T* __restrict__ lr, const T* __restrict__ scr,
@@ -306,6 +734,77 @@ apply_up_kernel(const T* __restrict__ lr, const T* __restrict__ scr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// Run fn(Int<NI>{}) for the padded interior sizes the kernels are built
+// for (cuda_kkt.KERNEL_NI), fn(Int<0>{}) (the run-time size) for any other
+// size up to 64.
+template <typename F>
+int dispatch_ni(int ni_p, F&& fn) {
+  switch (ni_p) {
+    case 8: return fn(Int<8>{});
+    case 16: return fn(Int<16>{});
+    case 24: return fn(Int<24>{});
+    case 32: return fn(Int<32>{});
+    default:
+      if (ni_p < 1 || ni_p > kMaxN) return (int)cudaErrorInvalidValue;
+      return fn(Int<0>{});
+  }
+}
+
+// Lanes per factor CTA: tile_lanes, or fewer where that tile does not fit
+// in shared memory (cuda_kkt.factor_tile_lanes); 0 if one lane does not.
+template <typename T>
+int factor_tile(int ni_p, int nr_p) {
+  const int lane_bytes = FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
+  const int fit = kSmemMax / lane_bytes;
+  return fit < tile_lanes<T>() ? fit : tile_lanes<T>();
+}
+
+template <typename T>
+int launch_factor(const T* kii, const T* kir, const T* krr, const T* delta, T* li, T* sci,
+                  T* xir, T* lr, T* scr, T* piv, T* dblk, T* s_scr, int nb, int ni_p, int nr_p,
+                  int ni_real, int nr_real, int Bp, double rtol, double floor_d, int attempts,
+                  cudaStream_t stream) {
+  if (nr_p < 1 || nr_p > kMaxN || ni_p < 1 || ni_p > kMaxN || Bp < 1)
+    return (int)cudaErrorInvalidValue;
+  const int TL = factor_tile<T>(ni_p, nr_p);
+  if (TL < 1) return (int)cudaErrorInvalidValue;
+  const int smem = TL * FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
+  return dispatch_ni(ni_p, [&](auto nic) {
+    constexpr int NI = decltype(nic)::value;
+    auto kernel = factor_kernel<T, NI>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(Bp + TL - 1) / TL, kWarp * TL, smem, stream>>>(
+        kii, kir, krr, delta, li, sci, xir, lr, scr, piv, dblk, s_scr, nb, ni_p, nr_p, ni_real,
+        nr_real, Bp, T(rtol), T(floor_d), attempts);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_apply_down(const T* li, const T* sci, const T* kir, const T* bi, const T* br, T* xbi,
+                      T* rred, int nb, int ni_p, int nr_p, int Bp, cudaStream_t stream) {
+  if (nb < 1 || nr_p < 1 || nr_p > kMaxN || Bp < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_ni(ni_p, [&](auto nic) {
+    constexpr int NI = decltype(nic)::value;
+    // blocks per chunk: up to 16 warps, shared memory within the default
+    // 48 KB (r_red, and per warp its s_b and, at run-time sizes, its x)
+    const int row = nr_p * kWarp * (int)sizeof(T);
+    const int xrow = NI > 0 ? 0 : ni_p * kWarp * (int)sizeof(T);
+    int bw = (kSmemDefault - row) / (row + xrow);
+    bw = bw < 16 ? bw : 16;
+    bw = bw < nb ? bw : nb;
+    const int smem = row + bw * (row + xrow);
+    apply_down_kernel<T, NI><<<(Bp + kWarp - 1) / kWarp, dim3(kWarp, bw), smem, stream>>>(
+        li, sci, kir, bi, br, xbi, rred, nb, ni_p, nr_p, Bp);
+    return (int)cudaGetLastError();
+  });
+}
+
 inline dim3 grid_for(int Bp) { return dim3((Bp + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -318,18 +817,16 @@ inline dim3 grid_for(int Bp) { return dim3((Bp + kThreads - 1) / kThreads); }
       T* xir, T* lr, T* scr, T* piv, T* dblk, T* s_scr, int nb, int ni_p,        \
       int nr_p, int ni_real, int nr_real, int Bp, double rtol, double floor_d,   \
       int attempts, void* stream) {                                              \
-    factor_kernel<T><<<grid_for(Bp), kThreads, 0, (cudaStream_t)stream>>>(       \
-        kii, kir, krr, delta, li, sci, xir, lr, scr, piv, dblk, s_scr, nb, ni_p, \
-        nr_p, ni_real, nr_real, Bp, T(rtol), T(floor_d), attempts);             \
-    return (int)cudaGetLastError();                                              \
+    return launch_factor<T>(kii, kir, krr, delta, li, sci, xir, lr, scr, piv,    \
+                            dblk, s_scr, nb, ni_p, nr_p, ni_real, nr_real, Bp,   \
+                            rtol, floor_d, attempts, (cudaStream_t)stream);      \
   }                                                                              \
   extern "C" int bak_apply_down_##SUF(const T* li, const T* sci, const T* kir,   \
                                       const T* bi, const T* br, T* xbi, T* rred, \
                                       int nb, int ni_p, int nr_p, int Bp,        \
                                       void* stream) {                            \
-    apply_down_kernel<T><<<grid_for(Bp), kThreads, 0, (cudaStream_t)stream>>>(   \
-        li, sci, kir, bi, br, xbi, rred, nb, ni_p, nr_p, Bp);                    \
-    return (int)cudaGetLastError();                                              \
+    return launch_apply_down<T>(li, sci, kir, bi, br, xbi, rred, nb, ni_p, nr_p, \
+                                Bp, (cudaStream_t)stream);                       \
   }                                                                              \
   extern "C" int bak_apply_up_##SUF(const T* lr, const T* scr, const T* rred,    \
                                     const T* xir, const T* xbi, T* xr, T* xi,    \

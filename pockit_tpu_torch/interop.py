@@ -31,8 +31,9 @@ def options_from_reference(opts) -> IPOptions:
     return IPOptions(**opts)
 
 
-def inputs_from_numpy(z0, bounds=None, bc_overrides=None, *, device="cpu", dtype=torch.float64):
-    """``(z0 (B, L), bounds, bc)`` as tensors on ``device`` in ``dtype``.
+def inputs_from_numpy(z0, bounds=None, bc_overrides=None, *, device="cuda", dtype=torch.float64):
+    """``(z0 (B, L), bounds, bc)`` as tensors on ``device`` (the card
+    unless ``device="cpu"``) in ``dtype``.
 
     ``bounds`` is any 4-sequence ``(z_lb, z_ub, c_lb, c_ub)`` (the
     reference's ``Bounds``), optionally batched; ``bc_overrides`` one

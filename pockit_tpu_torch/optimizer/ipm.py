@@ -7,8 +7,11 @@ convention:
 
 ``solve_batch`` and ``solve_batch_drained`` solve many instances of one
 discretized system at once. Tensors keep the device and dtype they are
-given; numpy inputs go to ``device`` (default CPU) in ``dtype`` (default
+given; numpy inputs go to ``device`` (default ``"cuda"``: pass
+``device="cpu"`` for the CPU) in ``dtype`` (default
 ``torch.get_default_dtype()``, the port's counterpart of JAX's x64 flag).
+Asking for CUDA where there is no card raises PyTorch's own error: nothing
+moves to the CPU unasked.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def _as_batch(guess_batch, device, dtype):
     return torch.as_tensor(
         np.asarray(guess_batch),
         dtype=dtype or torch.get_default_dtype(),
-        device=device or "cpu",
+        device=device or "cuda",
     )
 
 
@@ -95,7 +98,7 @@ def solve(
     guess,
     optimizer_options: Optional[IPOptions] = None,
     *,
-    device="cpu",
+    device="cuda",
     dtype=None,
 ):
     """Solve the system with the native interior-point method.
@@ -106,7 +109,8 @@ def solve(
             per-phase ``Variable`` s followed by the static-parameter array.
         optimizer_options: an :class:`IPOptions`; ``None`` uses
             dtype-appropriate defaults.
-        device, dtype: where and in which precision to solve.
+        device, dtype: where and in which precision to solve (the card
+            unless ``device="cpu"``).
 
     Returns:
         ``(result, info)`` where ``result`` matches the shape of ``guess``

@@ -51,30 +51,38 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile the kernels if this source and flag set has no library yet;
-    returns the library's path."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (by default the port's kernels) if this source and
+    flag set has no library yet; returns the library's path, with
+    ``ptxas.log`` beside it."""
+    source = Path(source)
+    key = hashlib.sha256(source.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / key
     lib = out_dir / "libbak.so"
     if lib.exists():
-        _info.setdefault("seconds", 0.0)
-        _info.setdefault("ptxas", (out_dir / "ptxas.log").read_text()
-                         if (out_dir / "ptxas.log").exists() else "")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libbak.{os.getpid()}.so"
-    t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *FLAGS, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    _info["seconds"] = time.perf_counter() - t0
-    _info["ptxas"] = proc.stderr
     (out_dir / "ptxas.log").write_text(proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    return lib
+
+
+def load_source(source: Path) -> ctypes.CDLL:
+    """Build and load a library from ``source``, with the launchers'
+    signatures bound (``source`` must export the same C functions)."""
+    lib = ctypes.CDLL(str(build(source)))
+    for name, argtypes in _SIGNATURES.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"bak_{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -82,18 +90,16 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
-                fn = getattr(lib, f"bak_{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        _lib = lib
+        t0 = time.perf_counter()
+        path = build()
+        _info["seconds"] = time.perf_counter() - t0
+        _info["ptxas"] = (path.parent / "ptxas.log").read_text()
+        _lib = load_source(SOURCE)
     return _lib
 
 
 def build_info() -> dict:
-    """``{"seconds": build time (0.0 when cached), "ptxas": -Xptxas -v
+    """``{"seconds": build time (about 0 when cached), "ptxas": -Xptxas -v
     output}`` of the loaded library."""
     load()
     return dict(_info)

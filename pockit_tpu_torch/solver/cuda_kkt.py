@@ -23,6 +23,16 @@ the Pallas body computes, in the same summation order; given CUDA tensors
 it launches the kernel or raises. Each kernel launch adds one to its entry
 in :data:`LAUNCHES`.
 
+Every kernel takes padded blocks up to :data:`MAX_BLOCK`; the wrappers
+raise ``ValueError`` for wider ones, before any launch. The factor and
+apply_down kernels have compile-time bodies for the padded interior sizes
+in :data:`KERNEL_NI`; every other interior size selects their run-time
+body (the same sums, with the per-lane scratch in shared memory). The
+factor keeps a tile of lanes in shared memory, as many as fit
+(:func:`factor_tile_lanes`). :func:`kernel_cost` counts the bytes and
+operations each kernel must move and do, and the least time an H100
+could take for them.
+
 :func:`make_newton_dir` is the port of the reference's batched Newton
 rule: the outer delta ladder, refinement against the per-block shifts the
 factor kernel used, and residual acceptance, as plain batched torch.
@@ -42,8 +52,10 @@ from pockit_tpu_torch.solver.structured import (
     scatter_blocks,
 )
 
-_BT = 128  # lane padding = CUDA thread-block size
-MAX_BLOCK = 64  # largest padded block the kernels' per-thread arrays hold
+_BT = 128  # lane padding of pad_move
+MAX_BLOCK = 64  # widest padded block (interior or reduced) the kernels take
+KERNEL_NI = (8, 16, 24, 32)  # padded interior sizes with compile-time bodies
+SMEM_MAX = 232_448  # shared memory one H100 CTA may opt into (227 KB)
 
 LAUNCHES = {"factor": 0, "apply_down": 0, "apply_up": 0}
 
@@ -55,6 +67,86 @@ def reset_launches():
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def factor_lane_bytes(ni_p: int, nr_p: int, dtype) -> int:
+    """Shared memory one lane of the factor holds: K_ii/L (rows padded to
+    ni_p + 1), sc_i, K_ir/X, S/L_r (rows padded to nr_p + 1), sc_r and a
+    4-element slot (``FactorLayout`` in the CUDA source)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return (ni_p * (ni_p + 1) + ni_p + ni_p * nr_p + nr_p * (nr_p + 1) + nr_p + 4) * item
+
+
+def factor_tile_lanes(ni_p: int, nr_p: int, dtype) -> int:
+    """Lanes per factor CTA, as the CUDA launcher picks them: one 32-byte
+    sector of each element (8 float32 or 4 float64 lanes), or fewer where
+    that tile would not fit in :data:`SMEM_MAX`. At ``MAX_BLOCK`` a float64
+    lane takes 100 KB, so every shape the kernels take fits 2 lanes."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return min(32 // item, SMEM_MAX // factor_lane_bytes(ni_p, nr_p, dtype))
+
+
+def _check_kernel_shape(ni_p: int, nr_p: int):
+    """Raise for padded blocks wider than the kernels take."""
+    if max(ni_p, nr_p) > MAX_BLOCK:
+        raise ValueError(f"padded blocks wider than {MAX_BLOCK} are not supported")
+
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+# operations/s outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def _chol_ops(n: int) -> int:
+    """Operations of one equilibrated Cholesky as the kernels compute it:
+    sc (3 n), per column a sqrt and a division, per row and column the
+    scaled entry (4), its tree-summed dot (2k) and the masked write (4)."""
+    return n**3 + 7 * n**2 + 4 * n
+
+
+def lane_bytes(name: str, nb: int, ni_p: int, nr_p: int, itemsize: int) -> int:
+    """Bytes one lane's call must move: each input read once, each output
+    written once."""
+    elems = {
+        # K_ii, K_ir, K_rr, delta; L_i, sc_i, X_ir, L_r, sc_r, piv, d_blk
+        "factor": nb * ni_p * ni_p * 2 + nb * ni_p * nr_p * 2 + nr_p * nr_p * 2
+        + 1 + nb * ni_p + nr_p + 4 + nb + 1,
+        # L_i, sc_i, K_ir, b_i, b_r; x_bi, r_red
+        "apply_down": nb * ni_p * ni_p + nb * ni_p + nb * ni_p * nr_p + nb * ni_p + nr_p
+        + nb * ni_p + nr_p,
+        # L_r, sc_r, r_red, X_ir, x_bi; x_r, x_i
+        "apply_up": nr_p * nr_p + 2 * nr_p + nb * ni_p * nr_p + nb * ni_p + nr_p + nb * ni_p,
+    }[name]
+    return elems * itemsize
+
+
+def lane_ops(name: str, nb: int, ni_p: int, nr_p: int) -> int:
+    """Arithmetic operations (each add, multiply, divide and sqrt one) of
+    one lane's call, with one Cholesky attempt per block."""
+    if name == "factor":
+        sub = nr_p * (ni_p**2 + ni_p)  # one triangular solve of the nr_p columns
+        per_block = _chol_ops(ni_p) + 2 * sub + 2 * ni_p * nr_p**2
+        return nb * per_block + 2 * nr_p**2 + _chol_ops(nr_p)
+    if name == "apply_down":
+        return nb * (2 * ni_p**2 + 2 * ni_p + 2 * ni_p * nr_p + nr_p)
+    return 2 * nr_p**2 + 2 * nr_p + nb * ni_p * (2 * nr_p + 1)
+
+
+def kernel_cost(name, nb, ni_p, nr_p, lanes, dtype, chol_retries=0) -> dict:
+    """Bytes and operations of one call on ``lanes`` lanes, and its bound:
+    the larger of bytes over the H100's memory rate and operations over its
+    peak for ``dtype``. ``chol_retries`` adds the extra Cholesky attempts
+    of the retry ladder (interior blocks) that this call's data needs."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = lanes * lane_bytes(name, nb, ni_p, nr_p, item)
+    ops = lanes * lane_ops(name, nb, ni_p, nr_p) + chol_retries * _chol_ops(ni_p)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S[dtype] * 1e3
+    return {
+        "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +366,8 @@ def factor_blocks(
         return factor_blocks_ref(K_ii, K_ir, K_rr, delta, **kw)
     nb, ni_p, _, BT = K_ii.shape
     nr_p = K_rr.shape[0]
-    if max(ni_p, nr_p) > MAX_BLOCK:
-        raise ValueError(f"padded blocks wider than {MAX_BLOCK} are not supported")
     dt = K_ii.dtype
+    _check_kernel_shape(ni_p, nr_p)
     _check("K_ii", K_ii, (nb, ni_p, ni_p, BT), dt)
     _check("K_ir", K_ir, (nb, ni_p, nr_p, BT), dt)
     _check("K_rr", K_rr, (nr_p, nr_p, BT), dt)
@@ -300,8 +391,7 @@ def apply_down(L_i, sc_i, K_ir, b_i, b_r):
     if _on_cpu(L_i, sc_i, K_ir, b_i, b_r):
         return apply_down_ref(L_i, sc_i, K_ir, b_i, b_r)
     nb, ni_p, nr_p, BT = K_ir.shape
-    if max(ni_p, nr_p) > MAX_BLOCK:
-        raise ValueError(f"padded blocks wider than {MAX_BLOCK} are not supported")
+    _check_kernel_shape(ni_p, nr_p)
     dt = L_i.dtype
     _check("L_i", L_i, (nb, ni_p, ni_p, BT), dt)
     _check("sc_i", sc_i, (nb, ni_p, BT), dt)
@@ -324,8 +414,7 @@ def apply_up(L_r, sc_r, r_red, X_ir, x_bi):
     if _on_cpu(L_r, sc_r, r_red, X_ir, x_bi):
         return apply_up_ref(L_r, sc_r, r_red, X_ir, x_bi)
     nb, ni_p, nr_p, BT = X_ir.shape
-    if max(ni_p, nr_p) > MAX_BLOCK:
-        raise ValueError(f"padded blocks wider than {MAX_BLOCK} are not supported")
+    _check_kernel_shape(ni_p, nr_p)
     dt = L_r.dtype
     _check("L_r", L_r, (nr_p, nr_p, BT), dt)
     _check("sc_r", sc_r, (nr_p, BT), dt)

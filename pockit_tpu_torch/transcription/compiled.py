@@ -202,8 +202,9 @@ class CompiledSystem:
         self.c_ub = system.c_ub
 
     # -- runtime dict ----------------------------------------------------
-    def default_runtime(self, device="cpu", dtype=torch.float64):
-        """Default runtime data: the FIXED boundary values as configured."""
+    def default_runtime(self, device="cuda", dtype=torch.float64):
+        """Default runtime data: the FIXED boundary values as configured,
+        on ``device`` (the card unless ``device="cpu"``)."""
         return {
             "bc": tuple(
                 torch.as_tensor(cp.fixed_vals, dtype=dtype, device=device)
@@ -251,31 +252,34 @@ class CompiledSystem:
         """``fct_o * f(z) + lam_c @ c(z)`` (bound terms excluded)."""
         return fct_o * self.objective_fn(z, rt) + self.constraints_fn(z, rt) @ lam_c
 
-    # -- host-facing dense evaluations -------------------------------------
+    # -- dense evaluations at one point ------------------------------------
+    # Each takes array-likes, evaluates in float64 on ``device`` (the card
+    # unless ``device="cpu"``; ``rt``'s tensors must lie there too) and
+    # returns a tensor on it.
     @staticmethod
-    def _t(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64))
+    def _t(a, device):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
 
-    def objective(self, z, rt=None):
-        return self.objective_fn(self._t(z), rt or self.default_runtime())
+    def objective(self, z, rt=None, device="cuda"):
+        return self.objective_fn(self._t(z, device), rt or self.default_runtime(device))
 
-    def gradient(self, z, rt=None):
-        return grad(self.objective_fn)(self._t(z), rt or self.default_runtime())
+    def gradient(self, z, rt=None, device="cuda"):
+        return grad(self.objective_fn)(self._t(z, device), rt or self.default_runtime(device))
 
-    def constraints(self, z, rt=None):
-        return self.constraints_fn(self._t(z), rt or self.default_runtime())
+    def constraints(self, z, rt=None, device="cuda"):
+        return self.constraints_fn(self._t(z, device), rt or self.default_runtime(device))
 
-    def jacobian(self, z, rt=None):
+    def jacobian(self, z, rt=None, device="cuda"):
         """Dense (m, L) constraint Jacobian."""
-        return jacrev(self.constraints_fn)(self._t(z), rt or self.default_runtime())
+        return jacrev(self.constraints_fn)(self._t(z, device), rt or self.default_runtime(device))
 
-    def hessian(self, z, lam_c, fct_o, rt=None):
+    def hessian(self, z, lam_c, fct_o, rt=None, device="cuda"):
         """Dense (L, L) Hessian of ``fct_o * f + lam_c @ c``."""
         return hessian(self.lagrangian_fn)(
-            self._t(z),
-            self._t(lam_c),
-            self._t(fct_o),
-            rt or self.default_runtime(),
+            self._t(z, device),
+            self._t(lam_c, device),
+            self._t(fct_o, device),
+            rt or self.default_runtime(device),
         )
 
 

@@ -109,7 +109,7 @@ def _phase_interval_data(system, pi: int, row0: int, ivals=None):
     # ---- constraint rows of each interval + sharing weights ----------
     # global constraint ordering: [system rows | per phase: dynamic rows
     # (state-major over L_d) then path rows (constraint-major over L_m)]
-    from pockit_tpu.numerics.layout import lr_nc
+    from pockit_tpu_torch.numerics.layout import lr_nc
 
     l_dr, _ = lr_nc(d.num_point - 1 if lob else d.num_point)
     L_d, L_m = int(d.L_d), int(d.L_m)
@@ -139,7 +139,7 @@ def _phase_interval_data(system, pi: int, row0: int, ivals=None):
         row_idx[bi] = rr
 
     # ---- per-interval operators --------------------------------------
-    from pockit_tpu.base.discretization import (
+    from pockit_tpu_torch.base.discretization import (
         _integration_block,
         _translation_block,
     )

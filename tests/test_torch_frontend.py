@@ -117,7 +117,8 @@ phase.set_discretization(4, 5)
 system.set_phase([phase])
 system.set_objective(phase.I[0] + x_f**2 / 2)
 import torch
-_, info = ipm.solve(system, [lobatto.constant_guess(phase, 0), [0.0]], dtype=torch.float64)
+_, info = ipm.solve(system, [lobatto.constant_guess(phase, 0), [0.0]], device="cpu",
+                     dtype=torch.float64)
 assert info["status"] == 0, info
 assert "jax" not in sys.modules, "a CPU solve loaded jax"
 print("ok")

@@ -150,6 +150,69 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cuda_kkt._check("K_ii", torch.zeros(3, 2).T, (2, 3), torch.float32)
 
 
+def test_lane_bytes_match_the_hand_count():
+    """Bytes per lane at the LQR bench shapes (float32, nb=10, ni_p=16,
+    nr_p=32), counted by hand from each kernel's inputs and outputs."""
+    assert cuda_kkt.lane_bytes("factor", 10, 16, 32, 4) == 70_464
+    assert cuda_kkt.lane_bytes("apply_down", 10, 16, 32, 4) == 32_896
+    assert cuda_kkt.lane_bytes("apply_up", 10, 16, 32, 4) == 26_240
+    cost = cuda_kkt.kernel_cost("factor", 10, 16, 32, 16384, torch.float32)
+    assert cost["bytes"] == 70_464 * 16384 and cost["bound_by"] == "bytes"
+    assert cost["bound_ms"] == pytest.approx(70_464 * 16384 / 3.35e12 * 1e3)
+    more = cuda_kkt.kernel_cost("factor", 10, 16, 32, 16384, torch.float32, chol_retries=100)
+    assert more["ops"] - cost["ops"] == 100 * (16**3 + 7 * 16**2 + 4 * 16)
+
+
+@pytest.mark.parametrize(
+    "ni_p, nr_p, dtype",
+    [
+        (72, 16, torch.float32),
+        (16, 72, torch.float64),
+        (72, 72, torch.float32),
+        (128, 8, torch.float64),
+        (8, 80, torch.float32),
+    ],
+)
+def test_wrappers_raise_for_shapes_the_kernels_do_not_take(ni_p, nr_p, dtype, monkeypatch):
+    """Padded blocks wider than 64 raise before any launch, in all three
+    wrappers. The tensors are meta tensors taken as card tensors: the check
+    needs no card and no data."""
+    monkeypatch.setattr(cuda_kkt, "_on_cpu", lambda *ts: False)
+    nb, BT = 2, 128
+    meta = lambda *s: torch.empty(s + (BT,), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="wider than 64"):
+        cuda_kkt.factor_blocks(
+            meta(nb, ni_p, ni_p), meta(nb, ni_p, nr_p), meta(nr_p, nr_p), meta(),
+            ni_real=ni_p, nr_real=nr_p, pivot_rtol=1e-3, delta_floor=0.1, attempts=1,
+        )
+    with pytest.raises(ValueError, match="wider than 64"):
+        cuda_kkt.apply_down(meta(nb, ni_p, ni_p), meta(nb, ni_p), meta(nb, ni_p, nr_p),
+                            meta(nb, ni_p), meta(nr_p))
+    with pytest.raises(ValueError, match="wider than 64"):
+        cuda_kkt.apply_up(meta(nr_p, nr_p), meta(nr_p), meta(nr_p), meta(nb, ni_p, nr_p),
+                          meta(nb, ni_p))
+
+
+@pytest.mark.parametrize(
+    "ni_p, nr_p, dtype, lanes",
+    [
+        (16, 32, torch.float32, 8),  # the bench shapes: 7,568 bytes a lane
+        (16, 32, torch.float64, 4),
+        (32, 64, torch.float32, 7),  # 29,456 bytes a lane: 8 would take 235 KB
+        (32, 64, torch.float64, 3),
+        (64, 64, torch.float32, 4),  # the widest: 50,192 bytes a lane
+        (64, 64, torch.float64, 2),
+    ],
+)
+def test_factor_tile_shrinks_to_fit_shared_memory(ni_p, nr_p, dtype, lanes):
+    """Every shape the kernels take runs: where a full tile of lanes does
+    not fit in the 227 KB of shared memory, the factor takes fewer lanes per
+    CTA (the CUDA launcher's own count, ``factor_tile``)."""
+    assert cuda_kkt.factor_tile_lanes(ni_p, nr_p, dtype) == lanes
+    assert lanes * cuda_kkt.factor_lane_bytes(ni_p, nr_p, dtype) <= cuda_kkt.SMEM_MAX
+    assert cuda_kkt.factor_lane_bytes(16, 32, torch.float32) == 1892 * 4
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -195,3 +258,72 @@ def test_kernels_match_plain_versions_on_card(cuda, dtype, attempts):
                          + cuda_kkt.apply_up_ref(L_r, sc_r, down[1], X_ir, down[0])):
         _close(got[..., lanes].cpu(), want[..., lanes].cpu(), rtol)
     assert cuda_kkt.LAUNCHES == {"factor": 1, "apply_down": 1, "apply_up": 1}
+
+
+def _lane_rel_err(got, want):
+    """Largest error of any lane relative to that lane's largest |want|
+    (lanes on the last axis), on finite entries; NaN positions must agree."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    lanes = want.shape[-1]
+    d = torch.where(fin, (got - want).abs(), 0.0).reshape(-1, lanes)
+    scale = torch.where(fin, want.abs(), 0.0).reshape(-1, lanes).amax(0)
+    return float((d / torch.clamp_min(scale, torch.finfo(want.dtype).tiny)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attempts", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize(
+    "nb, ni, nr, lanes",
+    [(3, 20, 37, 1001), (5, 16, 25, 333), (4, 5, 7, 77), (3, 30, 60, 45), (3, 37, 45, 101),
+     (3, 64, 64, 19)],
+    ids=["ni24_nr40", "ni16_nr32", "ni8_nr8", "ni32_nr64", "ni40_nr48", "ni64_nr64"],
+)
+def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, attempts, nb, ni,
+                                                                  nr, lanes):
+    """The factor and apply_down kernels at every built interior size (8,
+    16, 24, 32), at run-time sizes (40, 64), at reduced tiles of lanes
+    (ni_p=32 or 64 with nr_p=64) and at lane counts that are multiples of
+    neither the factor's lane tile nor 32 nor 128: lanes are sliced after
+    pad_move, so the kernels see the ragged count. Every third lane's block
+    1 has one eigenvalue at -0.5 (the retry ladder accepts it at 1.0) and
+    every fifth lane's block 2 one at -50 (rejected at every rung).
+    Tolerance per lane: 1e-4 in float32, 1e-11 in float64
+    (chip_smoke.py's)."""
+    rng = np.random.default_rng(4)
+    core = cuda_kkt.make_core(np.arange(nb * ni).reshape(nb, ni),
+                              np.arange(nb * ni, nb * ni + nr), nb * ni + nr)
+    Q, _ = np.linalg.qr(rng.standard_normal((lanes, nb, ni, ni)))
+    lam = rng.uniform(1.0, 10.0, (lanes, nb, ni))
+    lam[::3, 1, 0] = -0.5
+    lam[::5, 2, 0] = -50.0
+    K_ii = np.einsum("bkij,bkj,bklj->bkil", Q, lam, Q)
+    K_ir = rng.standard_normal((lanes, nb, ni, nr)) * 0.3
+    A = rng.standard_normal((lanes, nr, nr))
+    K_rr = A @ np.swapaxes(A, -1, -2) + 4 * nr * np.eye(nr)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    Kt = [k[..., :lanes].contiguous() for k in core.pad_move(t(K_ii), t(K_ir), t(K_rr))]
+    delta = torch.zeros(lanes, dtype=dtype, device=cuda)
+    kw = dict(ni_real=ni, nr_real=nr, pivot_rtol=PIVOT_RTOL, delta_floor=FLOOR, attempts=attempts)
+    cuda_kkt.reset_launches()
+    fac = cuda_kkt.factor_blocks(*Kt, delta, **kw)
+    fac_ref = cuda_kkt.factor_blocks_ref(*Kt, delta, **kw)
+    torch.cuda.synchronize()
+    ok = fac[5][3] > 0.5
+    assert torch.equal(ok, fac_ref[5][3] > 0.5)
+    assert torch.equal(fac[6], fac_ref[6])
+    assert 0 < int(ok.sum()) < lanes
+    if attempts == 3:
+        assert bool((fac[6][1] == 1.0).any())
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for got, want in zip(fac, fac_ref):
+        assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
+    b_i = t(rng.standard_normal((nb, core.ni_p, lanes)))
+    b_r = t(rng.standard_normal((core.nr_p, lanes)))
+    L_i, sc_i = fac_ref[0], fac_ref[1]
+    down = cuda_kkt.apply_down(L_i, sc_i, Kt[1], b_i, b_r)
+    down_ref = cuda_kkt.apply_down_ref(L_i, sc_i, Kt[1], b_i, b_r)
+    for got, want in zip(down, down_ref):
+        assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
+    assert cuda_kkt.LAUNCHES == {"factor": 1, "apply_down": 1, "apply_up": 0}

@@ -32,7 +32,7 @@ J1 = 0.2319139744522318  # LQR objective at x(0) = 1 (reference README)
 def test_solve_float64_matches_reference():
     port_sys, phase = build_lqr(port_lobatto)
     [var_p, var_s], info = ipm.solve(
-        port_sys, [port_lobatto.constant_guess(phase, 0), [0.0]], dtype=torch.float64
+        port_sys, [port_lobatto.constant_guess(phase, 0), [0.0]], device="cpu", dtype=torch.float64
     )
     ref_sys, ref_phase = build_lqr(ref_lobatto)
     _, ref_info = ref_ipm.solve(ref_sys, [ref_lobatto.constant_guess(ref_phase, 0), [0.0]])
@@ -59,7 +59,7 @@ def test_solve_batch_matches_reference_lane_by_lane():
     opts = interop.options_from_reference(ref_opts)
     assert dataclasses.asdict(opts) == dataclasses.asdict(ref_opts)
     want = ref_ipm.solve_batch(ref_sys, z0, bc_overrides=(jnp.asarray(bc),), optimizer_options=ref_opts)
-    z0_t, _, bc_t = interop.inputs_from_numpy(z0, None, (bc,), dtype=torch.float64)
+    z0_t, _, bc_t = interop.inputs_from_numpy(z0, None, (bc,), device="cpu", dtype=torch.float64)
     got = interop.result_to_numpy(
         ipm.solve_batch(port_sys, z0_t, bc_overrides=bc_t, optimizer_options=opts)
     )
@@ -86,7 +86,8 @@ def test_solve_batch_drained_matches_reference(first_pass_iters, drain_frac):
         ref_sys, z0, bc_overrides=(bc,), optimizer_options=RefOptions(kkt_solver="pallas"), **kw
     )
     got = ipm.solve_batch_drained(
-        port_sys, z0, bc_overrides=(bc,), optimizer_options=opts, dtype=torch.float64, **kw
+        port_sys, z0, bc_overrides=(bc,), optimizer_options=opts, device="cpu", dtype=torch.float64,
+        **kw
     )
     status, obj, iters, z, mask1 = got
     np.testing.assert_array_equal(mask1, want[4])
@@ -134,7 +135,8 @@ def test_solve_float32_matches_reference(mesh):
     ref_status, ref_obj, ref_iters = json.loads(proc.stdout.strip().splitlines()[-1])
     system, phase = build_lqr(port_lobatto, mesh, mesh)
     _, info = ipm.solve(
-        system, [port_lobatto.constant_guess(phase, 0), [0.0]], dtype=torch.float32
+        system, [port_lobatto.constant_guess(phase, 0), [0.0]], device="cpu",
+        dtype=torch.float32,
     )
     assert ref_status == info["status"] == 0
     assert info["iterations"] == ref_iters
@@ -157,7 +159,8 @@ def test_float32_lqr_gate(kkt_solver):
         ipm.default_options(torch.float32), kkt_solver=kkt_solver, newton_residual_rtol=0.0
     )
     _, info = ipm.solve(
-        system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts, dtype=torch.float32
+        system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts, device="cpu",
+        dtype=torch.float32,
     )
     assert info["status"] == 0
     assert info["obj_val"] == pytest.approx(J1, abs=5e-6)
@@ -186,7 +189,8 @@ def test_solve_turns_tf32_off_and_restores_the_callers_flags():
         torch.backends.cudnn.allow_tf32 = True
         with Watch():
             _, info = ipm.solve(
-                system, [port_lobatto.constant_guess(phase, 0), [0.0]], dtype=torch.float32
+                system, [port_lobatto.constant_guess(phase, 0), [0.0]], device="cpu",
+                dtype=torch.float32,
             )
         after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     finally:
@@ -213,7 +217,7 @@ def test_unported_options_raise(name, monkeypatch):
     if name.startswith("POCKIT_"):
         monkeypatch.setenv(name, "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts)
+        ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts, device="cpu")
 
 
 def test_interop_rejects_unknown_option_fields():

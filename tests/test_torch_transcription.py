@@ -53,11 +53,28 @@ def test_nlp_functions_match_reference(pair, seed):
     z, y, _, bc = _point(ref_sys, seed)
     rt_ref = {"bc": (jnp.asarray(bc),)}
     rt_port = {"bc": (torch.as_tensor(bc),)}
-    _close(pc.objective(z, rt_port), rc.objective(z, rt_ref))
-    _close(pc.gradient(z, rt_port), rc.gradient(z, rt_ref))
-    _close(pc.constraints(z, rt_port), rc.constraints(z, rt_ref))
-    _close(pc.jacobian(z, rt_port), rc.jacobian(z, rt_ref))
-    _close(pc.hessian(z, y, 0.7, rt_port), rc.hessian(z, y, 0.7, rt_ref))
+    cpu = dict(device="cpu")
+    _close(pc.objective(z, rt_port, **cpu), rc.objective(z, rt_ref))
+    _close(pc.gradient(z, rt_port, **cpu), rc.gradient(z, rt_ref))
+    _close(pc.constraints(z, rt_port, **cpu), rc.constraints(z, rt_ref))
+    _close(pc.jacobian(z, rt_port, **cpu), rc.jacobian(z, rt_ref))
+    _close(pc.hessian(z, y, 0.7, rt_port, **cpu), rc.hessian(z, y, 0.7, rt_ref))
+
+
+def test_nlp_callbacks_match_reference(pair):
+    """The System's cyipopt surface (sparse structures and values, numpy in
+    and out) evaluated on the CPU against the reference System's."""
+    ref_sys, port_sys = pair
+    z, y, _, _ = _point(ref_sys, 2)
+    cpu = dict(device="cpu")
+    assert port_sys.objective(z, **cpu) == pytest.approx(ref_sys.objective(z), rel=RTOL)
+    _close(port_sys.gradient(z, **cpu), ref_sys.gradient(z))
+    _close(port_sys.constraints(z, **cpu), ref_sys.constraints(z))
+    for got, want in zip(port_sys.jacobianstructure(**cpu) + port_sys.hessianstructure(**cpu),
+                         ref_sys.jacobianstructure() + ref_sys.hessianstructure()):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    _close(port_sys.jacobian(z, **cpu), ref_sys.jacobian(z))
+    _close(port_sys.hessian(z, y, 0.7, **cpu), ref_sys.hessian(z, y, 0.7))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
