@@ -13,11 +13,11 @@ exits non-zero):
 2. kernels against their plain torch versions at the LQR bench shapes
    (nb=10, ni=16, nr=25 -> 32, B=16384 float32; B=1024 float64), with a
    few lanes made indefinite so the retry ladder and acceptance flags run;
-   times of each kernel and its plain version with CUDA events; then the
-   factor and apply_down kernels at ragged shapes (``RAGGED``: every
-   built interior size, two run-time sizes, reduced lane tiles; 1001
-   lanes, a multiple of neither the factor's lane tile, 32 nor 128) in
-   both types.
+   times of each kernel and its plain version with CUDA events; then all
+   three kernels at ragged shapes (``RAGGED``: every built interior and
+   reduced size, run-time sizes, reduced lane tiles, more interval
+   blocks than an apply_up CTA has warps; 1001 lanes, a multiple of
+   neither the factor's lane tile, 32 nor 128) in both types.
 3. float64 LQR (10x10 LGL, B=256) through the kernels against the
    analytic objective J1 * x0^2.
 4. the float32 bench workload: B=16384 LQR instances, two-stage drained
@@ -196,23 +196,28 @@ def phase_kernels(B, dtype, rtol, timed):
     return res, times, chol_retries
 
 
-# (ni, nr) of the ragged checks and what each exercises, padded sizes in
-# brackets: built interior bodies [24, 8, 32], run-time bodies [40, 64],
-# fewer factor lanes per CTA than a full tile [32 or 64 with nr_p 64]
-RAGGED = ((20, 37), (5, 7), (30, 60), (37, 45), (64, 64))
+# (nb, ni, nr) of the ragged checks and what each exercises, padded sizes
+# in brackets (ni_p, nr_p): built interior bodies [24, 8, 32], run-time
+# interior bodies [40, 64], fewer factor lanes per CTA than a full tile
+# [32 or 64 with nr_p 64]; every apply_up body [8, 16, 24; 32 at the bench
+# shapes; run-time 40, 48, 64]; 40 blocks, 200 interior rows over the 8
+# warps of an apply_up CTA
+RAGGED = ((6, 20, 37), (6, 5, 7), (6, 30, 60), (6, 37, 45), (6, 64, 64), (40, 5, 7), (6, 12, 13),
+          (6, 9, 21))
 
 
-def phase_ragged(dtype, rtol, ni, nr):
-    """The factor and apply_down kernels against their plain versions at a
-    ragged shape: interiors of ``ni`` and a reduced block of ``nr``, padded
-    to multiples of 8, on 6 blocks and 1001 lanes (a multiple of neither
-    the factor's lane tile, 32 nor 128). Same flags, levels and per-lane
+def phase_ragged(dtype, rtol, nb, ni, nr):
+    """The three kernels against their plain versions at a ragged shape:
+    ``nb`` interiors of ``ni`` and a reduced block of ``nr``, padded to
+    multiples of 8, on 1001 lanes (a multiple of neither the factor's lane
+    tile, 32 nor 128). Each kernel takes the kernel outputs before it, and
+    its plain version the same inputs. Same flags, levels and per-lane
     tolerance as the bench shapes."""
     import torch
 
     from pockit_tpu_torch.solver import cuda_kkt as ck
 
-    nb, lanes = 6, 1001
+    lanes = 1001
     core = ck.make_core(np.arange(nb * ni).reshape(nb, ni), np.arange(nb * ni, nb * ni + nr),
                         nb * ni + nr)
     Kt, b_i, b_r = kernel_inputs(core, lanes, dtype, seed=11, device="cuda", nb=nb, ni=ni, nr=nr,
@@ -229,17 +234,22 @@ def phase_ragged(dtype, rtol, ni, nr):
     if bool(ok.all()) or not bool((fac[6][3] > 0).any()):
         raise AssertionError("ragged: the inputs did not exercise the retry ladder and rejection")
     lanes_ok = torch.nonzero(ok)[:, 0].cpu()
-    errs = [max_err(a.cpu()[..., lanes_ok], b.cpu()[..., lanes_ok]) for a, b in zip(fac, fac_ref)]
-    down = ck.apply_down(fac[0], fac[1], Kt[1], b_i, b_r)
-    down_ref = ck.apply_down_ref(fac[0], fac[1], Kt[1], b_i, b_r)
+    rel = lambda got, want: max(max_err(a.cpu()[..., lanes_ok], b.cpu()[..., lanes_ok])[1]
+                                for a, b in zip(got, want))
+    L_i, sc_i, X_ir, L_r, sc_r, _, _ = fac
+    down = ck.apply_down(L_i, sc_i, Kt[1], b_i, b_r)
+    down_ref = ck.apply_down_ref(L_i, sc_i, Kt[1], b_i, b_r)
+    up = ck.apply_up(L_r, sc_r, down[1], X_ir, down[0])
+    up_ref = ck.apply_up_ref(L_r, sc_r, down[1], X_ir, down[0])
     torch.cuda.synchronize()
-    errs_d = [max_err(a.cpu()[..., lanes_ok], b.cpu()[..., lanes_ok]) for a, b in zip(down, down_ref)]
-    rel_f, rel_d = max(e[1] for e in errs), max(e[1] for e in errs_d)
-    print(f"phase 2 ragged {dtype} ni_p={core.ni_p} nr_p={core.nr_p} lanes={lanes} "
-          f"(factor lanes per CTA {ck.factor_tile_lanes(core.ni_p, core.nr_p, dtype)}): factor "
-          f"max_lane_rel_err={rel_f:.3e} apply_down max_lane_rel_err={rel_d:.3e}; lanes accepted "
-          f"{int(ok.sum())} (tolerance per-lane rel {rtol:.0e})", flush=True)
-    if not (rel_f <= rtol and rel_d <= rtol):
+    errs = {"factor": rel(fac, fac_ref), "apply_down": rel(down, down_ref), "apply_up": rel(up, up_ref)}
+    launch = ck.apply_up_launch(nb, core.ni_p, core.nr_p, lanes, dtype)
+    print(f"phase 2 ragged {dtype} nb={nb} ni_p={core.ni_p} nr_p={core.nr_p} lanes={lanes} "
+          f"(factor lanes per CTA {ck.factor_tile_lanes(core.ni_p, core.nr_p, dtype)}, apply_up body "
+          f"{launch['body']} warps {launch['warps']}): "
+          + " ".join(f"{k} max_lane_rel_err={v:.3e}" for k, v in errs.items())
+          + f"; lanes accepted {int(ok.sum())} (tolerance per-lane rel {rtol:.0e})", flush=True)
+    if not max(errs.values()) <= rtol:
         raise AssertionError(f"ragged {dtype}: kernel vs plain per-lane error above {rtol:.0e}")
 
 
@@ -285,9 +295,9 @@ def main():
     # amplified by the factorization (blocks are well conditioned here)
     errs32, times, retries32 = phase_kernels(16384, torch.float32, 1e-4, timed=True)
     phase_kernels(1024, torch.float64, 1e-11, timed=False)
-    for ni, nr in RAGGED:
-        phase_ragged(torch.float32, 1e-4, ni, nr)
-        phase_ragged(torch.float64, 1e-11, ni, nr)
+    for nb, ni, nr in RAGGED:
+        phase_ragged(torch.float32, 1e-4, nb, ni, nr)
+        phase_ragged(torch.float64, 1e-11, nb, ni, nr)
 
     system, phase = build_lqr(lobatto)
     x0, _ = preprocess(system, [lobatto.constant_guess(phase, 0), [0.0]])

@@ -7,20 +7,25 @@
 Builds ``--old-source`` and the checkout's own source with the same flags
 (``pockit_tpu_torch/solver/_build.py``) and, at ``--shape`` (nb, ni, nr:
 by default the LQR bench shapes, padded to ni_p=16, nr_p=32) in float32
-on ``--batch`` lanes (``chip_smoke.py``'s inputs):
+on ``--batch`` lanes (``chip_smoke.py``'s inputs). Run it at the bench
+shapes and at ``--shape 10,40,25`` (ni_p=40: the run-time interior bodies
+of the factor and apply_down, and 400 interior rows for apply_up). It:
 
-- prints each build's ptxas registers, stack frame and spills per kernel;
+- prints each build's ptxas registers, stack frame and spills per kernel
+  (every body, both types);
 - checks that the two factor kernels give the same acceptance flags and
   per-block levels and agree per lane within 1e-4, and the two apply_down
-  kernels likewise;
-- times the factor and apply_down kernels of both with CUDA events, in
-  turns (old, new, new, old per round), and prints the times as one JSON
-  line, the last.
+  kernels and the two apply_up kernels likewise (each pair on the same
+  inputs: the old build's factors and apply_down outputs);
+- times the factor, apply_down and apply_up kernels of both with CUDA
+  events, in turns (old, new, new, old per round), and prints the times as
+  one JSON line, the last.
 
-Each side is run through the port's own wrappers (``cuda_kkt.factor_blocks``
-and ``cuda_kkt.apply_down``) with that side's library loaded in their
-place, so both sources must export the same C launchers. Exits non-zero
-without a card.
+Each side is run through the port's own wrappers (``cuda_kkt.factor_blocks``,
+``cuda_kkt.apply_down`` and ``cuda_kkt.apply_up``) with that side's
+library loaded in their place, so both sources must export the same three
+C launchers; apply_up's launch is read from the checkout's build alone
+(``cuda_kkt.apply_up_launch``). Exits non-zero without a card.
 """
 
 import argparse
@@ -33,8 +38,8 @@ from chip_smoke import CPU_ONLY, cuda_ms, kernel_inputs, max_err, nvidia_smi
 
 
 def ptxas_summary(log):
-    """{kernel: 'N registers, S bytes stack, X bytes spill stores'} from a
-    ptxas -v log, for the factor and apply_down kernels."""
+    """{kernel<type, built size>: registers, stack frame and spills} from a
+    ptxas -v log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -78,7 +83,7 @@ def main():
     ptxas = {}
     for side, src in (("old", args.old_source), ("new", _build.SOURCE)):
         log = (_build.build(src).parent / "ptxas.log").read_text()
-        ptxas[side] = {k: v for k, v in ptxas_summary(log).items() if "<f32" in k and "apply_up" not in k}
+        ptxas[side] = ptxas_summary(log)
         print(f"ptxas {side}: {json.dumps(ptxas[side])}", flush=True)
 
     nb, ni, nr = (int(v) for v in args.shape.split(","))
@@ -101,6 +106,13 @@ def main():
         return ck.apply_down(fac["old"][0], fac["old"][1], Kt[1], b_i, b_r)
 
     down = {s: apply_down(s) for s in ("old", "new")}
+
+    def apply_up(side):
+        _build._lib = libs[side]
+        L_r, sc_r, X_ir = fac["old"][3], fac["old"][4], fac["old"][2]
+        return ck.apply_up(L_r, sc_r, down["old"][1], X_ir, down["old"][0])
+
+    up = {s: apply_up(s) for s in ("old", "new")}
     torch.cuda.synchronize()
     ok = fac["old"][5][3, :B] > 0.5
     if not torch.equal(ok, fac["new"][5][3, :B] > 0.5) or not torch.equal(fac["old"][6],
@@ -112,19 +124,24 @@ def main():
                       for a, b in zip(fac["new"], fac["old"])),
         "apply_down": max(max_err(a.cpu()[..., lanes], b.cpu()[..., lanes])[1]
                           for a, b in zip(down["new"], down["old"])),
+        "apply_up": max(max_err(a.cpu()[..., lanes], b.cpu()[..., lanes])[1]
+                        for a, b in zip(up["new"], up["old"])),
     }
     print(f"new against old, per-lane relative: {rel}", flush=True)
     if max(rel.values()) > 1e-4:
         raise AssertionError("old and new kernels disagree above 1e-4 per lane")
 
-    times = {f"{k}_{s}": [] for k in ("factor", "apply_down") for s in ("old", "new")}
+    times = {f"{k}_{s}": [] for k in ("factor", "apply_down", "apply_up") for s in ("old", "new")}
     for _ in range(args.rounds):
         for side in ("old", "new", "new", "old"):
             times[f"factor_{side}"].append(cuda_ms(lambda: factor(side), 20))
             times[f"apply_down_{side}"].append(cuda_ms(lambda: apply_down(side), 50))
+            times[f"apply_up_{side}"].append(cuda_ms(lambda: apply_up(side), 50))
     med = {k: float(np.median(v)) for k, v in times.items()}
+    _build._lib = libs["new"]  # the launch the new build makes
     print(json.dumps({"device": torch.cuda.get_device_name(0), "power": smi,
                       "shape": {"nb": nb, "ni_p": core.ni_p, "nr_p": core.nr_p, "lanes": B},
+                      "apply_up_launch": ck.apply_up_launch(nb, core.ni_p, core.nr_p, B, dtype),
                       "median_ms": med, "ms": times, "lane_rel_err_new_vs_old": rel,
                       "ptxas": ptxas}), flush=True)
 

@@ -28,7 +28,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxN = 64;          // widest padded block (cuda_kkt.MAX_BLOCK)
-constexpr int kThreads = 128;      // apply_up's block
+constexpr int kUpWarps = 8;        // most warps of an apply_up CTA
 constexpr int kSmemMax = 232448;   // shared memory one H100 CTA may opt into (227 KB)
 constexpr int kSmemDefault = 49152;  // without opting in (48 KB)
 
@@ -49,21 +49,9 @@ __device__ __forceinline__ bool passes(T dmin, T dmax, T rtol) {
   return isfinite(dmin) && isfinite(dmax) && dmin > rtol * dmax;
 }
 
-// Pairwise sum of a[0..n) in the order of structured._tree_sum (n >= 1);
-// overwrites a. Runtime n: apply_up only.
-template <typename T>
-__device__ T tree_sum(T* a, int n) {
-  while (n > 1) {
-    const int h = n >> 1;
-    for (int j = 0; j < h; ++j) a[j] = a[2 * j] + a[2 * j + 1];
-    if (n & 1) a[h] = a[n - 1];
-    n = h + (n & 1);
-  }
-  return a[0];
-}
-
-// The same sum for a compile-time count N over a register array: fully
-// unrolled, so the array never leaves registers.
+// Pairwise sum of a[0..N) in the order of structured._tree_sum, for a
+// compile-time count N over a register array: fully unrolled, so the array
+// never leaves registers.
 template <int N, typename T, int M>
 __device__ __forceinline__ T tree_sum_n(T (&a)[M]) {
   static_assert(N >= 1 && N <= M, "tree_sum_n: bad count");
@@ -127,6 +115,77 @@ __device__ __forceinline__ void static_for(F&& f) {
   if constexpr (B < E) {
     f(Int<B>{});
     static_for<B + 1, E>(f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the (L L^T)-solves of apply_down and apply_up
+// ---------------------------------------------------------------------------
+
+// x <- sc (L L^T)^{-1} (sc x) for a compile-time size N, x in registers:
+// the forward then the backward substitution, each dot a tree sum in
+// _tree_sum's order, IEEE division by the diagonal (the reference's
+// _blk_solve_lanes). L(k, j) and sc(k) read the factor wherever it lies:
+// apply_down's interior blocks in device memory, apply_up's reduced block
+// in shared memory.
+template <int N, typename T, typename FL, typename FS>
+__device__ __forceinline__ void blk_solve_n(T (&x)[N], FL&& L, FS&& sc) {
+  static_for<0, N>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    T v = x[k] * sc(k);
+    if constexpr (k > 0) {
+      T terms[k];
+#pragma unroll
+      for (int j = 0; j < k; ++j) terms[j] = x[j] * L(k, j);
+      v = v - tree_sum_n<k>(terms);
+    }
+    x[k] = v / L(k, k);
+  });
+  static_for<0, N>([&](auto kc) {
+    constexpr int k = N - 1 - decltype(kc)::value;
+    T v = x[k];
+    if constexpr (k < N - 1) {
+      T terms[N - 1 - k];
+#pragma unroll
+      for (int j = k + 1; j < N; ++j) terms[j - k - 1] = x[j] * L(j, k);
+      v = v - tree_sum_n<N - 1 - k>(terms);
+    }
+    x[k] = v / L(k, k);
+  });
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = x[k] * sc(k);
+}
+
+// The same for a run-time size n <= 64, x in shared memory at x[k * 32],
+// L(k, j) at L[(k n + j) ld] and sc(k) at sc[k ld] (one lane of a
+// batch-last block in device memory); the solution is also written to
+// out[k ld] in the loop that scales it, as both callers need it there.
+// Each dot streams through TreeAcc, so every sum is the same tree.
+template <typename T>
+__device__ __forceinline__ void blk_solve_rt(T* x, int n, const T* __restrict__ L,
+                                             const T* __restrict__ sc, T* __restrict__ out,
+                                             int ld) {
+  for (int k = 0; k < n; ++k) {
+    T v = x[k * kWarp] * sc[(size_t)k * ld];
+    if (k) {
+      TreeAcc<T> acc;
+      for (int j = 0; j < k; ++j) acc.push(x[j * kWarp] * L[(size_t)(k * n + j) * ld]);
+      v = v - acc.total();
+    }
+    x[k * kWarp] = v / L[(size_t)(k * n + k) * ld];
+  }
+  for (int k = n - 1; k >= 0; --k) {
+    T v = x[k * kWarp];
+    if (k < n - 1) {
+      TreeAcc<T> acc;
+      for (int j = k + 1; j < n; ++j) acc.push(x[j * kWarp] * L[(size_t)(j * n + k) * ld]);
+      v = v - acc.total();
+    }
+    x[k * kWarp] = v / L[(size_t)(k * n + k) * ld];
+  }
+  for (int k = 0; k < n; ++k) {
+    x[k * kWarp] = x[k * kWarp] * sc[(size_t)k * ld];
+    out[(size_t)k * ld] = x[k * kWarp];
   }
 }
 
@@ -548,20 +607,21 @@ factor_kernel(const T* __restrict__ kii, const T* __restrict__ kir, const T* __r
 
 // Replaces _apply_down_kernel (pallas_kkt.py:385).
 //
-// Bound: bytes. At the bench shapes it must read L_i, sc_i, K_ir, b_i and
-// b_r and write x_bi and r_red, 32,896 bytes per lane in float32: 0.54 GB
-// at B=16384, 0.161 ms at 3.35 TB/s, for 16 kFLOP per lane.
+// Bound: bytes. At the bench shapes it must read L_i (its lower triangle:
+// the solves read nothing above the diagonal), sc_i, K_ir, b_i and b_r and
+// write x_bi and r_red, 28,096 bytes per lane in float32: 0.46 GB at
+// B=16384, 0.137 ms at 3.35 TB/s, for 16 kFLOP per lane.
 //
 // Design: a CTA owns 32 lanes and bw warps (bw = blockDim.y, up to 16).
 // Warp w solves block b = b0 + w of its 32 lanes, so the nb interior
 // solves of a lane run in parallel and every load of L_i and K_ir is one
 // 128-byte (float) row of 32 lanes: x_bi = sc (L L^T)^{-1} sc b_i with x
-// in registers (NI is a template parameter), then the block's partial
-// dots s_b[c] = sum_i K_ir[b,i,c] x_bi[i], each summed in i order, into
-// shared memory. After each chunk of bw blocks the CTA applies
+// in registers (blk_solve_n, NI a template parameter), then the block's
+// partial dots s_b[c] = sum_i K_ir[b,i,c] x_bi[i], each summed in i order,
+// into shared memory. After each chunk of bw blocks the CTA applies
 // r_red[c] -= s_b[c] in block order, so r_red = b_r - s_0 - s_1 - ... as
 // in the reference. NI = 0 takes any other interior size up to 64 at run
-// time, with x in shared memory and the dots streamed through TreeAcc.
+// time, with x in shared memory (blk_solve_rt).
 template <typename T, int NI>
 __global__ void __launch_bounds__(512)
 apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
@@ -587,28 +647,7 @@ apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
         const T* s = sci + (size_t)b * ni * Bp + lane;
         T* x = Xs + w * ni * kWarp + l;  // x[k] at x[k * 32]
         for (int k = 0; k < ni; ++k) x[k * kWarp] = bi[((size_t)b * ni + k) * Bp + lane];
-        for (int k = 0; k < ni; ++k) {
-          T v = x[k * kWarp] * s[(size_t)k * Bp];
-          if (k) {
-            TreeAcc<T> acc;
-            for (int j = 0; j < k; ++j) acc.push(x[j * kWarp] * L[(size_t)(k * ni + j) * Bp]);
-            v = v - acc.total();
-          }
-          x[k * kWarp] = v / L[(size_t)(k * ni + k) * Bp];
-        }
-        for (int k = ni - 1; k >= 0; --k) {
-          T v = x[k * kWarp];
-          if (k < ni - 1) {
-            TreeAcc<T> acc;
-            for (int j = k + 1; j < ni; ++j) acc.push(x[j * kWarp] * L[(size_t)(j * ni + k) * Bp]);
-            v = v - acc.total();
-          }
-          x[k * kWarp] = v / L[(size_t)(k * ni + k) * Bp];
-        }
-        for (int k = 0; k < ni; ++k) {
-          x[k * kWarp] = x[k * kWarp] * s[(size_t)k * Bp];
-          xbi[((size_t)b * ni + k) * Bp + lane] = x[k * kWarp];
-        }
+        blk_solve_rt(x, ni, L, s, xbi + (size_t)b * ni * Bp + lane, Bp);
         const T* K = kir + (size_t)b * ni * nr * Bp + lane;
         for (int c = 0; c < nr; ++c) {
           T acc = T(0);
@@ -622,33 +661,10 @@ apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
       T x[NI];
 #pragma unroll
       for (int k = 0; k < NI; ++k) x[k] = bi[((size_t)b * NI + k) * Bp + lane];
-      static_for<0, NI>([&](auto kc) {
-        constexpr int k = decltype(kc)::value;
-        T v = x[k] * s[(size_t)k * Bp];
-        if constexpr (k > 0) {
-          T terms[k];
+      blk_solve_n(x, [&](int k, int j) { return L[(size_t)(k * NI + j) * Bp]; },
+                  [&](int k) { return s[(size_t)k * Bp]; });
 #pragma unroll
-          for (int j = 0; j < k; ++j) terms[j] = x[j] * L[(size_t)(k * NI + j) * Bp];
-          v = v - tree_sum_n<k>(terms);
-        }
-        x[k] = v / L[(size_t)(k * NI + k) * Bp];
-      });
-      static_for<0, NI>([&](auto kc) {
-        constexpr int k = NI - 1 - decltype(kc)::value;
-        T v = x[k];
-        if constexpr (k < NI - 1) {
-          T terms[NI - 1 - k];
-#pragma unroll
-          for (int j = k + 1; j < NI; ++j) terms[j - k - 1] = x[j] * L[(size_t)(j * NI + k) * Bp];
-          v = v - tree_sum_n<NI - 1 - k>(terms);
-        }
-        x[k] = v / L[(size_t)(k * NI + k) * Bp];
-      });
-#pragma unroll
-      for (int k = 0; k < NI; ++k) {
-        x[k] = x[k] * s[(size_t)k * Bp];
-        xbi[((size_t)b * NI + k) * Bp + lane] = x[k];
-      }
+      for (int k = 0; k < NI; ++k) xbi[((size_t)b * NI + k) * Bp + lane] = x[k];
       const T* K = kir + (size_t)b * NI * nr * Bp + lane;
       for (int c = 0; c < nr; ++c) {
         T acc = T(0);
@@ -671,65 +687,137 @@ apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
 }
 
 // ---------------------------------------------------------------------------
-// apply_up: one thread per lane (not yet redesigned)
+// apply_up: a CTA of 32 lanes, the reduced solve once per lane, the
+// interior rows across warps
 // ---------------------------------------------------------------------------
 
-// Strided view of one lane: element e of a batch-last array.
-template <typename T>
-struct Lane {
-  T* p;
-  int s;
-  __device__ __forceinline__ T& operator[](int e) const { return p[(size_t)e * s]; }
-};
+// Offset of row k in a packed lower triangle.
+__host__ __device__ constexpr int tri(int k) { return k * (k + 1) / 2; }
 
-// x <- sc * (L L^T)^{-1} (sc * x) for one vector of length n (in place).
-template <typename T>
-__device__ void blk_solve(Lane<T> L, Lane<T> sc, int n, T* x) {
-  T terms[kMaxN];
-  for (int k = 0; k < n; ++k) {
-    T v = x[k] * sc[k];
-    if (k) {
-      for (int j = 0; j < k; ++j) terms[j] = x[j] * L[k * n + j];
-      v = v - tree_sum(terms, k);
-    }
-    x[k] = v / L[k * n + k];
-  }
-  for (int k = n - 1; k >= 0; --k) {
-    T v = x[k];
-    if (k < n - 1) {
-      for (int j = k + 1; j < n; ++j) terms[j - k - 1] = x[j] * L[j * n + k];
-      v = v - tree_sum(terms, n - 1 - k);
-    }
-    x[k] = v / L[k * n + k];
-  }
-  for (int k = 0; k < n; ++k) x[k] = x[k] * sc[k];
+// Shared memory of an apply_up CTA, in elements: for a built reduced size
+// NR, the packed lower triangle of L_r, sc_r and r_red (then x_r) of its
+// 32 lanes; for the run-time body (NR = 0), x_r alone.
+__host__ __device__ constexpr int up_smem_elems(int NR, int nr) {
+  return NR > 0 ? (tri(NR) + 2 * NR) * kWarp : nr * kWarp;
 }
 
-// Replaces _apply_up_kernel (pallas_kkt.py:403). Bound by reading X_ir and
-// L_r once (26,240 bytes per lane in float32 at the bench shapes). One
-// thread per lane, walking the blocks in order, with its scratch in local
-// memory: the next kernel to redesign.
+// One element from device memory into shared memory, asynchronously
+// (cp.async); cp.async.wait_all then waits for all of this thread's.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(T)));
+}
+
+// Replaces _apply_up_kernel (pallas_kkt.py:403).
+//
+// Bound: bytes. At the bench shapes (float32, nb=10, ni_p=16, nr_p=32) it
+// must read L_r (its lower triangle), sc_r, r_red, X_ir and x_bi and
+// write x_r and x_i, 24,256 bytes per lane: 0.40 GB at B=16384, 0.119 ms
+// at 3.35 TB/s, for 12.5 kFLOP per lane (3 us at 67 TFLOP/s). X_ir is 84%
+// of the bytes.
+//
+// Design: a CTA owns 32 lanes and bw warps (bw = blockDim.y, up to 8), so
+// every load and store of one element is one 128-byte (float) row of 32
+// lanes. Part 1, the reduced solve x_r = sc_r (L_r L_r^T)^{-1} sc_r r_red,
+// runs once per lane in warp 0. For the built reduced sizes NR (8, 16, 24,
+// 32) every warp first copies the lanes' lower triangle of L_r, sc_r and
+// r_red into shared memory with cp.async (all copies in flight at once,
+// 75.8 KB per CTA in float at NR = 32), and warp 0 then runs the dependent
+// chain of 2 NR divisions from shared memory with x in registers; NR = 0
+// takes any other size up to 64 at run time, reading L_r from device
+// memory with x in shared memory. x_r goes to shared memory as [nr][32]
+// (conflict-free). Part 2, x_i = x_bi - X_ir x_r, after one
+// __syncthreads: the interior rows (b, i) are independent, so they are one
+// flat list of nb ni_p rows and warp w takes rows w, w + bw, ...; a thread
+// loads its lane's row of X_ir (NR loads in flight, x_r in registers) and
+// sums over c in order. The blocks and ni_p only set the row count, so
+// every nb >= 1 and every ni_p runs the same body.
+// Part 1's chain runs once per CTA while the other warps wait, and its
+// unrolled body is what spills. The launch bound asks for 2 float CTAs per
+// SM (up to 128 registers): on an H100 that ran 11% faster at the bench
+// shapes than 3 CTAs at 80 registers (kernel_ab.py, in turns).
+template <typename T, int NR>
+__global__ void __launch_bounds__(kWarp * kUpWarps, sizeof(T) == 4 ? 2 : 1)
 apply_up_kernel(const T* __restrict__ lr, const T* __restrict__ scr,
                 const T* __restrict__ rred, const T* __restrict__ xir,
-                const T* __restrict__ xbi, T* xr_out, T* xi,
-                int nb, int ni_p, int nr_p, int Bp) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= Bp) return;
-  auto at = [&](const T* p) { return Lane<T>{const_cast<T*>(p) + lane, Bp}; };
-  T xr[kMaxN];
-  Lane<T> R = at(rred), Xr = at(xr_out), Xbi = at(xbi), Xi = at(xi), Xir = at(xir);
-  for (int r = 0; r < nr_p; ++r) xr[r] = R[r];
-  blk_solve(at(lr), at(scr), nr_p, xr);
-  for (int r = 0; r < nr_p; ++r) Xr[r] = xr[r];
-  // x_i = x_bi - X_ir x_r
-  for (int b = 0; b < nb; ++b) {
-    for (int i = 0; i < ni_p; ++i) {
+                const T* __restrict__ xbi, T* __restrict__ xr_out, T* __restrict__ xi,
+                long long rows, int nr_rt, int Bp) {
+  const int nr = NR > 0 ? NR : nr_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int l = threadIdx.x, w = threadIdx.y, bw = blockDim.y;
+  const int lane = blockIdx.x * kWarp + l;
+  const bool active = lane < Bp;
+  T* xs;  // x_r of the CTA's lanes: x_r[c] at xs[c * 32 + l]
+  if constexpr (NR > 0) {
+    T* Ls = smem;                  // L_r[k][j] (j <= k) at Ls[(tri(k) + j) * 32 + l]
+    T* Ss = Ls + tri(NR) * kWarp;  // sc_r
+    xs = Ss + NR * kWarp;          // r_red, then x_r
+    if (active) {
+      for (int k = 0; k < NR; ++k)
+        for (int j = w; j <= k; j += bw)
+          copy_async(Ls + (tri(k) + j) * kWarp + l, lr + (size_t)(k * NR + j) * Bp + lane);
+      for (int k = w; k < NR; k += bw) {
+        copy_async(Ss + k * kWarp + l, scr + (size_t)k * Bp + lane);
+        copy_async(xs + k * kWarp + l, rred + (size_t)k * Bp + lane);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (w == 0 && active) {
+      T x[NR];
+#pragma unroll
+      for (int k = 0; k < NR; ++k) x[k] = xs[k * kWarp + l];
+      blk_solve_n(x, [&](int k, int j) { return Ls[(tri(k) + j) * kWarp + l]; },
+                  [&](int k) { return Ss[k * kWarp + l]; });
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        xs[k * kWarp + l] = x[k];
+        xr_out[(size_t)k * Bp + lane] = x[k];
+      }
+    }
+  } else {
+    xs = smem;
+    if (w == 0 && active) {
+      T* x = xs + l;
+      for (int k = 0; k < nr; ++k) x[k * kWarp] = rred[(size_t)k * Bp + lane];
+      blk_solve_rt(x, nr, lr + lane, scr + lane, xr_out + lane, Bp);
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  if constexpr (NR > 0) {
+    T xr[NR];
+#pragma unroll
+    for (int c = 0; c < NR; ++c) xr[c] = xs[c * kWarp + l];
+    for (long long r = w; r < rows; r += bw) {
+      const T* X = xir + (size_t)r * NR * Bp + lane;
+      T v[NR];
+#pragma unroll
+      for (int c = 0; c < NR; ++c) v[c] = X[(size_t)c * Bp];
+      const T b = xbi[(size_t)r * Bp + lane];
       T s = T(0);
-      const int row = (b * ni_p + i) * nr_p;
-      for (int c = 0; c < nr_p; ++c) s = s + Xir[row + c] * xr[c];
-      Xi[b * ni_p + i] = Xbi[b * ni_p + i] - s;
+#pragma unroll
+      for (int c = 0; c < NR; ++c) s = s + v[c] * xr[c];
+      xi[(size_t)r * Bp + lane] = b - s;
+    }
+  } else {
+    for (long long r = w; r < rows; r += bw) {
+      const T* X = xir + (size_t)r * nr * Bp + lane;
+      const T b = xbi[(size_t)r * Bp + lane];
+      T s = T(0);
+      int c = 0;
+      for (; c + 8 <= nr; c += 8) {
+        T v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = X[(size_t)(c + u) * Bp];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) s = s + v[u] * xs[(c + u) * kWarp + l];
+      }
+      for (; c < nr; ++c) s = s + X[(size_t)c * Bp] * xs[c * kWarp + l];
+      xi[(size_t)r * Bp + lane] = b - s;
     }
   }
 }
@@ -738,18 +826,19 @@ apply_up_kernel(const T* __restrict__ lr, const T* __restrict__ scr,
 // launchers
 // ---------------------------------------------------------------------------
 
-// Run fn(Int<NI>{}) for the padded interior sizes the kernels are built
-// for (cuda_kkt.KERNEL_NI), fn(Int<0>{}) (the run-time size) for any other
-// size up to 64.
+// Run fn(Int<N>{}) for the padded sizes the kernels are built for
+// (cuda_kkt.KERNEL_SIZES: the interiors of the factor and apply_down,
+// apply_up's reduced block), fn(Int<0>{}) (the run-time size) for any
+// other size up to 64.
 template <typename F>
-int dispatch_ni(int ni_p, F&& fn) {
-  switch (ni_p) {
+int dispatch_n(int n, F&& fn) {
+  switch (n) {
     case 8: return fn(Int<8>{});
     case 16: return fn(Int<16>{});
     case 24: return fn(Int<24>{});
     case 32: return fn(Int<32>{});
     default:
-      if (ni_p < 1 || ni_p > kMaxN) return (int)cudaErrorInvalidValue;
+      if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
       return fn(Int<0>{});
   }
 }
@@ -773,7 +862,7 @@ int launch_factor(const T* kii, const T* kir, const T* krr, const T* delta, T* l
   const int TL = factor_tile<T>(ni_p, nr_p);
   if (TL < 1) return (int)cudaErrorInvalidValue;
   const int smem = TL * FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
-  return dispatch_ni(ni_p, [&](auto nic) {
+  return dispatch_n(ni_p, [&](auto nic) {
     constexpr int NI = decltype(nic)::value;
     auto kernel = factor_kernel<T, NI>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -789,7 +878,7 @@ template <typename T>
 int launch_apply_down(const T* li, const T* sci, const T* kir, const T* bi, const T* br, T* xbi,
                       T* rred, int nb, int ni_p, int nr_p, int Bp, cudaStream_t stream) {
   if (nb < 1 || nr_p < 1 || nr_p > kMaxN || Bp < 1) return (int)cudaErrorInvalidValue;
-  return dispatch_ni(ni_p, [&](auto nic) {
+  return dispatch_n(ni_p, [&](auto nic) {
     constexpr int NI = decltype(nic)::value;
     // blocks per chunk: up to 16 warps, shared memory within the default
     // 48 KB (r_red, and per warp its s_b and, at run-time sizes, its x)
@@ -805,12 +894,46 @@ int launch_apply_down(const T* li, const T* sci, const T* kir, const T* bi, cons
   });
 }
 
-inline dim3 grid_for(int Bp) { return dim3((Bp + kThreads - 1) / kThreads); }
+// apply_up's launch at a shape, into up[3]: the body (the built reduced
+// size NR; 0, the run-time body), warps per CTA of 32 lanes (one per
+// interior row up to kUpWarps, so every nb ni_p rows run) and the CTA's
+// shared memory in bytes. cudaErrorInvalidValue for a shape it does not
+// take. The launcher launches exactly this (cuda_kkt.apply_up_launch
+// reads it).
+int up_launch(int nb, int ni_p, int nr_p, int Bp, int item, int* up) {
+  if (nb < 1 || ni_p < 1 || ni_p > kMaxN || nr_p < 1 || nr_p > kMaxN || Bp < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)nb * ni_p;
+  up[0] = dispatch_n(nr_p, [](auto nrc) { return decltype(nrc)::value; });
+  up[1] = rows < kUpWarps ? (int)rows : kUpWarps;
+  up[2] = up_smem_elems(up[0], nr_p) * item;
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int launch_apply_up(const T* lr, const T* scr, const T* rred, const T* xir, const T* xbi, T* xr,
+                    T* xi, int nb, int ni_p, int nr_p, int Bp, cudaStream_t stream) {
+  int up[3];
+  if (int e = up_launch(nb, ni_p, nr_p, Bp, (int)sizeof(T), up)) return e;
+  const int bw = up[1], smem = up[2];
+  return dispatch_n(nr_p, [&](auto nrc) {
+    constexpr int NR = decltype(nrc)::value;
+    auto kernel = apply_up_kernel<T, NR>;
+    if (smem > kSmemDefault) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(Bp + kWarp - 1) / kWarp, dim3(kWarp, bw), smem, stream>>>(
+        lr, scr, rred, xir, xbi, xr, xi, (long long)nb * ni_p, nr_p, Bp);
+    return (int)cudaGetLastError();
+  });
+}
 
 }  // namespace
 
 // Plain C launchers (bound with ctypes): raw pointers, sizes and the
-// stream; each returns the cudaError_t of its launch.
+// stream; each returns the cudaError_t of its launch. bak_apply_up_launch_*
+// returns apply_up's launch at a shape (up_launch) without launching.
 #define BAK_LAUNCHERS(T, SUF)                                                    \
   extern "C" int bak_factor_##SUF(                                               \
       const T* kii, const T* kir, const T* krr, const T* delta, T* li, T* sci,   \
@@ -832,9 +955,12 @@ inline dim3 grid_for(int Bp) { return dim3((Bp + kThreads - 1) / kThreads); }
                                     const T* xir, const T* xbi, T* xr, T* xi,    \
                                     int nb, int ni_p, int nr_p, int Bp,          \
                                     void* stream) {                              \
-    apply_up_kernel<T><<<grid_for(Bp), kThreads, 0, (cudaStream_t)stream>>>(     \
-        lr, scr, rred, xir, xbi, xr, xi, nb, ni_p, nr_p, Bp);                    \
-    return (int)cudaGetLastError();                                              \
+    return launch_apply_up<T>(lr, scr, rred, xir, xbi, xr, xi, nb, ni_p, nr_p,   \
+                              Bp, (cudaStream_t)stream);                         \
+  }                                                                              \
+  extern "C" int bak_apply_up_launch_##SUF(int nb, int ni_p, int nr_p, int Bp,   \
+                                           int* up) {                            \
+    return up_launch(nb, ni_p, nr_p, Bp, (int)sizeof(T), up);                    \
   }
 
 BAK_LAUNCHERS(float, f32)

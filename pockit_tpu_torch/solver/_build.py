@@ -40,6 +40,7 @@ _SIGNATURES = {
     "factor": [_P] * 12 + [_I] * 6 + [_D, _D, _I, _P],
     "apply_down": [_P] * 7 + [_I] * 4 + [_P],
     "apply_up": [_P] * 7 + [_I] * 4 + [_P],
+    "apply_up_launch": [_I] * 4 + [_P],
 }
 
 
@@ -76,11 +77,14 @@ def build(source: Path = SOURCE) -> Path:
 
 def load_source(source: Path) -> ctypes.CDLL:
     """Build and load a library from ``source``, with the launchers'
-    signatures bound (``source`` must export the same C functions)."""
+    signatures bound. A source from before a launcher was added loads
+    without it (calling it then raises ``AttributeError``)."""
     lib = ctypes.CDLL(str(build(source)))
     for name, argtypes in _SIGNATURES.items():
         for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"bak_{name}_{suffix}")
+            fn = getattr(lib, f"bak_{name}_{suffix}", None)
+            if fn is None:
+                continue
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib

@@ -26,12 +26,14 @@ in :data:`LAUNCHES`.
 Every kernel takes padded blocks up to :data:`MAX_BLOCK`; the wrappers
 raise ``ValueError`` for wider ones, before any launch. The factor and
 apply_down kernels have compile-time bodies for the padded interior sizes
-in :data:`KERNEL_NI`; every other interior size selects their run-time
-body (the same sums, with the per-lane scratch in shared memory). The
-factor keeps a tile of lanes in shared memory, as many as fit
-(:func:`factor_tile_lanes`). :func:`kernel_cost` counts the bytes and
-operations each kernel must move and do, and the least time an H100
-could take for them.
+in :data:`KERNEL_SIZES`, apply_up for padded reduced blocks of those
+sizes; every other size selects the kernel's run-time body
+(the same sums, with the per-lane scratch in shared memory). The factor
+keeps a tile of lanes in shared memory, as many as fit
+(:func:`factor_tile_lanes`); :func:`apply_up_launch` reads apply_up's
+body, warps and shared memory from its launcher. :func:`kernel_cost`
+counts the bytes and operations each kernel must move and do, and the
+least time an H100 could take for them.
 
 :func:`make_newton_dir` is the port of the reference's batched Newton
 rule: the outer delta ladder, refinement against the per-block shifts the
@@ -40,6 +42,7 @@ factor kernel used, and residual acceptance, as plain batched torch.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -54,7 +57,9 @@ from pockit_tpu_torch.solver.structured import (
 
 _BT = 128  # lane padding of pad_move
 MAX_BLOCK = 64  # widest padded block (interior or reduced) the kernels take
-KERNEL_NI = (8, 16, 24, 32)  # padded interior sizes with compile-time bodies
+# padded sizes with compile-time bodies: the interiors of the factor and
+# apply_down, apply_up's reduced block
+KERNEL_SIZES = (8, 16, 24, 32)
 SMEM_MAX = 232_448  # shared memory one H100 CTA may opt into (227 KB)
 
 LAUNCHES = {"factor": 0, "apply_down": 0, "apply_up": 0}
@@ -86,6 +91,22 @@ def factor_tile_lanes(ni_p: int, nr_p: int, dtype) -> int:
     return min(32 // item, SMEM_MAX // factor_lane_bytes(ni_p, nr_p, dtype))
 
 
+def apply_up_launch(nb: int, ni_p: int, nr_p: int, lanes: int, dtype) -> dict:
+    """apply_up's launch at a shape, read from the kernel library (so it
+    needs the CUDA toolkit): the launcher's own choice, which it launches.
+    ``body``, the built reduced size that runs (0: the run-time body);
+    ``warps`` per CTA of 32 lanes, one per interior row up to 8; ``smem``,
+    the CTA's shared memory in bytes (a built body holds its lanes' lower
+    triangle of L_r, sc_r and r_red; the run-time body x_r alone). Raises
+    ``ValueError`` for a shape the launcher refuses."""
+    up = (ctypes.c_int * 3)()
+    rc = _kernel("apply_up_launch", dtype)(nb, ni_p, nr_p, lanes, up)
+    if rc != 0:
+        raise ValueError(f"apply_up takes no launch at nb={nb}, ni_p={ni_p}, nr_p={nr_p}, "
+                         f"lanes={lanes}: cudaError_t {rc}")
+    return dict(zip(("body", "warps", "smem"), up))
+
+
 def _check_kernel_shape(ni_p: int, nr_p: int):
     """Raise for padded blocks wider than the kernels take."""
     if max(ni_p, nr_p) > MAX_BLOCK:
@@ -106,17 +127,22 @@ def _chol_ops(n: int) -> int:
 
 
 def lane_bytes(name: str, nb: int, ni_p: int, nr_p: int, itemsize: int) -> int:
-    """Bytes one lane's call must move: each input read once, each output
-    written once."""
+    """Bytes one lane's call must move: each input its function reads, read
+    once, and each output written once. The applies' solves read only the
+    lower triangle of L_i and L_r (their plain versions too: nothing above
+    the diagonal reaches the result); the factor's plain version reads all
+    of K_ii and K_rr (a NaN anywhere reaches its output) and writes all of
+    L_i and L_r."""
+    tri = lambda n: n * (n + 1) // 2
     elems = {
         # K_ii, K_ir, K_rr, delta; L_i, sc_i, X_ir, L_r, sc_r, piv, d_blk
         "factor": nb * ni_p * ni_p * 2 + nb * ni_p * nr_p * 2 + nr_p * nr_p * 2
         + 1 + nb * ni_p + nr_p + 4 + nb + 1,
-        # L_i, sc_i, K_ir, b_i, b_r; x_bi, r_red
-        "apply_down": nb * ni_p * ni_p + nb * ni_p + nb * ni_p * nr_p + nb * ni_p + nr_p
+        # L_i (lower), sc_i, K_ir, b_i, b_r; x_bi, r_red
+        "apply_down": nb * tri(ni_p) + nb * ni_p + nb * ni_p * nr_p + nb * ni_p + nr_p
         + nb * ni_p + nr_p,
-        # L_r, sc_r, r_red, X_ir, x_bi; x_r, x_i
-        "apply_up": nr_p * nr_p + 2 * nr_p + nb * ni_p * nr_p + nb * ni_p + nr_p + nb * ni_p,
+        # L_r (lower), sc_r, r_red, X_ir, x_bi; x_r, x_i
+        "apply_up": tri(nr_p) + 2 * nr_p + nb * ni_p * nr_p + nb * ni_p + nr_p + nb * ni_p,
     }[name]
     return elems * itemsize
 

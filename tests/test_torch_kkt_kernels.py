@@ -152,10 +152,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_lane_bytes_match_the_hand_count():
     """Bytes per lane at the LQR bench shapes (float32, nb=10, ni_p=16,
-    nr_p=32), counted by hand from each kernel's inputs and outputs."""
+    nr_p=32), counted by hand from each kernel's inputs and outputs: the
+    applies read only the lower triangle of L_i (10 x 136 elements) and
+    L_r (528)."""
     assert cuda_kkt.lane_bytes("factor", 10, 16, 32, 4) == 70_464
-    assert cuda_kkt.lane_bytes("apply_down", 10, 16, 32, 4) == 32_896
-    assert cuda_kkt.lane_bytes("apply_up", 10, 16, 32, 4) == 26_240
+    assert cuda_kkt.lane_bytes("apply_down", 10, 16, 32, 4) == 28_096
+    assert cuda_kkt.lane_bytes("apply_up", 10, 16, 32, 4) == 24_256
     cost = cuda_kkt.kernel_cost("factor", 10, 16, 32, 16384, torch.float32)
     assert cost["bytes"] == 70_464 * 16384 and cost["bound_by"] == "bytes"
     assert cost["bound_ms"] == pytest.approx(70_464 * 16384 / 3.35e12 * 1e3)
@@ -191,6 +193,47 @@ def test_wrappers_raise_for_shapes_the_kernels_do_not_take(ni_p, nr_p, dtype, mo
     with pytest.raises(ValueError, match="wider than 64"):
         cuda_kkt.apply_up(meta(nr_p, nr_p), meta(nr_p), meta(nr_p), meta(nb, ni_p, nr_p),
                           meta(nb, ni_p))
+
+
+def test_apply_up_lane_bytes_and_ops_match_the_hand_count():
+    """apply_up's bytes and operations per lane at a ragged shape (nb=40,
+    ni_p=8, nr_p=8), counted element by element and operation by operation
+    from what the function reads, writes and computes: of L_r only the
+    lower triangle, diagonal included (``test_apply_up_at_unpadded_sizes``
+    fills the rest with NaN)."""
+    nb, ni_p, nr_p = 40, 8, 8
+    L_r = sum(1 for k in range(nr_p) for j in range(nr_p) if j <= k)
+    reads = {"L_r": L_r, "sc_r": nr_p, "r_red": nr_p, "X_ir": nb * ni_p * nr_p,
+             "x_bi": nb * ni_p}
+    writes = {"x_r": nr_p, "x_i": nb * ni_p}
+    assert L_r == 36
+    assert sum(reads.values()) + sum(writes.values()) == 3_260
+    assert cuda_kkt.lane_bytes("apply_up", nb, ni_p, nr_p, 4) == 3_260 * 4
+    assert cuda_kkt.lane_bytes("apply_up", nb, ni_p, nr_p, 8) == 3_260 * 8
+    ops = 0
+    for k in range(nr_p):  # forward: sc x, the dot (k products, k - 1 adds), subtract, divide
+        ops += 1 + (2 * k - 1 + 1 if k else 0) + 1
+    for k in range(nr_p):  # backward: the dot over the n - 1 - k rows below, subtract, divide
+        m = nr_p - 1 - k
+        ops += (2 * m - 1 + 1 if m else 0) + 1
+    ops += nr_p  # x_r = sc x
+    ops += nb * ni_p * (2 * nr_p + 1)  # each row: nr_p products and adds, then x_bi minus the sum
+    assert ops == 5_584
+    assert cuda_kkt.lane_ops("apply_up", nb, ni_p, nr_p) == ops
+
+
+def test_apply_down_lane_bytes_match_the_hand_count():
+    """apply_down's bytes per lane at the same ragged shape, counted element
+    by element: of L_i only each block's lower triangle, which is all its
+    solves read."""
+    nb, ni_p, nr_p = 40, 8, 8
+    L_i = nb * sum(1 for k in range(ni_p) for j in range(ni_p) if j <= k)
+    reads = {"L_i": L_i, "sc_i": nb * ni_p, "K_ir": nb * ni_p * nr_p, "b_i": nb * ni_p,
+             "b_r": nr_p}
+    writes = {"x_bi": nb * ni_p, "r_red": nr_p}
+    assert sum(reads.values()) + sum(writes.values()) == 4_976
+    assert cuda_kkt.lane_bytes("apply_down", nb, ni_p, nr_p, 4) == 4_976 * 4
+    assert cuda_kkt.lane_bytes("apply_down", nb, ni_p, nr_p, 8) == 4_976 * 8
 
 
 @pytest.mark.parametrize(
@@ -271,20 +314,62 @@ def _lane_rel_err(got, want):
     return float((d / torch.clamp_min(scale, torch.finfo(want.dtype).tiny)).max())
 
 
+# (nb, ni, nr, lanes) of the ragged card cases
+RAGGED_CASES = [(3, 20, 37, 1001), (5, 16, 25, 333), (4, 5, 7, 77), (3, 30, 60, 45),
+                (3, 37, 45, 101), (3, 64, 64, 19), (40, 5, 7, 129), (4, 12, 13, 65),
+                (3, 9, 21, 97)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_apply_up_launch_takes_every_reduced_size(cuda, dtype):
+    """Every reduced size up to 64 has an apply_up body (a built one for
+    8/16/24/32, the run-time one otherwise) whose CTA fits in shared memory,
+    and every interior row count its warps (one per row, up to 8); the
+    launcher refuses what it does not take. Read from the launcher itself
+    (``bak_apply_up_launch_*``), which launches exactly this."""
+    for nr_p in range(1, cuda_kkt.MAX_BLOCK + 1):
+        launch = cuda_kkt.apply_up_launch(10, 16, nr_p, 1001, dtype)
+        assert launch["body"] == (nr_p if nr_p in (8, 16, 24, 32) else 0)
+        assert 0 < launch["smem"] <= cuda_kkt.SMEM_MAX
+    # the bench shapes in float32: 75,776 bytes, so 3 CTAs would fit an SM's 227 KB
+    assert cuda_kkt.apply_up_launch(10, 16, 32, 16384, torch.float32)["smem"] == 75_776
+    for rows in range(1, 20):
+        assert cuda_kkt.apply_up_launch(rows, 1, 8, 1, dtype)["warps"] == min(rows, 8)
+    assert cuda_kkt.apply_up_launch(40, 5, 7, 129, dtype)["warps"] == 8
+    for nb, ni_p, nr_p, lanes in [(0, 8, 8, 32), (1, 0, 8, 32), (1, 65, 8, 32), (1, 8, 0, 32),
+                                  (1, 8, 65, 32), (1, 8, 8, 0)]:
+        with pytest.raises(ValueError, match="no launch"):
+            cuda_kkt.apply_up_launch(nb, ni_p, nr_p, lanes, dtype)
+
+
+@pytest.mark.gpu
+def test_card_cases_run_every_apply_up_body(cuda):
+    """The ragged card cases below select every apply_up body the launcher
+    has, so each one is run on the card, and one of them more interior rows
+    than a CTA has warps."""
+    pad = lambda n: -(-n // 8) * 8
+    launches = [cuda_kkt.apply_up_launch(nb, pad(ni), pad(nr), lanes, torch.float32)
+                for nb, ni, nr, lanes in RAGGED_CASES]
+    assert {u["body"] for u in launches} == {0, *cuda_kkt.KERNEL_SIZES}
+    assert any(nb * pad(ni) > 8 * u["warps"] for (nb, ni, _, _), u in zip(RAGGED_CASES, launches))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("attempts", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize(
-    "nb, ni, nr, lanes",
-    [(3, 20, 37, 1001), (5, 16, 25, 333), (4, 5, 7, 77), (3, 30, 60, 45), (3, 37, 45, 101),
-     (3, 64, 64, 19)],
-    ids=["ni24_nr40", "ni16_nr32", "ni8_nr8", "ni32_nr64", "ni40_nr48", "ni64_nr64"],
+    "nb, ni, nr, lanes", RAGGED_CASES,
+    ids=["ni24_nr40", "ni16_nr32", "ni8_nr8", "ni32_nr64", "ni40_nr48", "ni64_nr64",
+         "nb40_ni8_nr8", "ni16_nr16", "ni16_nr24"],
 )
 def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, attempts, nb, ni,
                                                                   nr, lanes):
-    """The factor and apply_down kernels at every built interior size (8,
-    16, 24, 32), at run-time sizes (40, 64), at reduced tiles of lanes
-    (ni_p=32 or 64 with nr_p=64) and at lane counts that are multiples of
+    """The three kernels at every built interior size (8, 16, 24, 32), at
+    run-time sizes (40, 64), at reduced tiles of lanes (ni_p=32 or 64 with
+    nr_p=64), at every apply_up body (reduced sizes 8, 16, 24, 32 and the
+    run-time 40, 48, 64), with 40 blocks (320 interior rows over the 8
+    warps of an apply_up CTA) and at lane counts that are multiples of
     neither the factor's lane tile nor 32 nor 128: lanes are sliced after
     pad_move, so the kernels see the ragged count. Every third lane's block
     1 has one eigenvalue at -0.5 (the retry ladder accepts it at 1.0) and
@@ -321,9 +406,43 @@ def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, a
         assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
     b_i = t(rng.standard_normal((nb, core.ni_p, lanes)))
     b_r = t(rng.standard_normal((core.nr_p, lanes)))
-    L_i, sc_i = fac_ref[0], fac_ref[1]
+    L_i, sc_i, X_ir, L_r, sc_r = fac_ref[:5]
     down = cuda_kkt.apply_down(L_i, sc_i, Kt[1], b_i, b_r)
     down_ref = cuda_kkt.apply_down_ref(L_i, sc_i, Kt[1], b_i, b_r)
     for got, want in zip(down, down_ref):
         assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
-    assert cuda_kkt.LAUNCHES == {"factor": 1, "apply_down": 1, "apply_up": 0}
+    up = cuda_kkt.apply_up(L_r, sc_r, down[1], X_ir, down[0])
+    up_ref = cuda_kkt.apply_up_ref(L_r, sc_r, down[1], X_ir, down[0])
+    for got, want in zip(up, up_ref):
+        assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
+    assert cuda_kkt.LAUNCHES == {"factor": 1, "apply_down": 1, "apply_up": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize(
+    "nb, ni_p, nr_p, lanes", [(3, 5, 13, 37), (1, 1, 1, 5), (2, 64, 7, 33), (1, 3, 33, 40),
+                              (7, 2, 64, 3)],
+)
+def test_apply_up_at_unpadded_sizes(cuda, dtype, nb, ni_p, nr_p, lanes):
+    """The apply_up wrapper takes any ni_p and nr_p up to 64, not only the
+    multiples of 8 that pad_move makes, and any lane count: the run-time
+    body's tail (nr_p not a multiple of 8), a single row and column, a
+    single warp. L_r is a well-conditioned lower factor whose strict upper
+    part is NaN: the kernel must never read it. Same tolerances."""
+    rng = np.random.default_rng(nr_p)
+    L = np.tril(rng.standard_normal((lanes, nr_p, nr_p)) * 0.2, -1)
+    L += np.eye(nr_p) * rng.uniform(1.0, 2.0, (lanes, 1, nr_p))
+    L[:, *np.triu_indices(nr_p, 1)] = np.nan
+    # batch-leading draws, lanes moved last
+    t = lambda a: torch.as_tensor(np.moveaxis(a, 0, -1).copy(), dtype=dtype, device=cuda)
+    args = (t(L), t(rng.uniform(0.5, 2.0, (lanes, nr_p))), t(rng.standard_normal((lanes, nr_p))),
+            t(rng.standard_normal((lanes, nb, ni_p, nr_p))), t(rng.standard_normal((lanes, nb, ni_p))))
+    cuda_kkt.reset_launches()
+    up = cuda_kkt.apply_up(*args)
+    up_ref = cuda_kkt.apply_up_ref(*args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for got, want in zip(up, up_ref):
+        assert bool(torch.isfinite(got).all())
+        assert _lane_rel_err(got, want) <= tol
+    assert cuda_kkt.LAUNCHES["apply_up"] == 1

@@ -8,6 +8,7 @@ the port and the Pallas kernels in interpret mode in the reference.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,18 +45,32 @@ def test_solve_float64_matches_reference():
     assert var_p.x[0][-1] == pytest.approx(float(var_s[0]), abs=1e-9)
 
 
-def _batch(B, seed):
+@functools.cache
+def _systems():
+    """The 6x6 LQR in both packages and the reference's initial guess,
+    built once for the module. The reference compiles a batched solver per
+    system, options and batch shape, and compiling dominates these tests'
+    time, so tests that solve with the same options and batch size share
+    one compile."""
     ref_sys, ref_phase = build_lqr(ref_lobatto, 6, 6)
     port_sys, _ = build_lqr(port_lobatto, 6, 6)
     x0, _ = ref_preprocess(ref_sys, [ref_lobatto.constant_guess(ref_phase, 0), [0.0]])
+    return ref_sys, port_sys, x0
+
+
+def _batch(B, seed):
+    ref_sys, port_sys, x0 = _systems()
     bc = np.tile(ref_sys.compiled.phases[0].fixed_vals, (B, 1))
     bc[:, 0] = np.random.default_rng(seed).uniform(0.5, 1.5, B)
     return ref_sys, port_sys, np.tile(x0, (B, 1)), bc
 
 
 def test_solve_batch_matches_reference_lane_by_lane():
+    """Every lane of this QP converges in 2 iterations, so ``max_iter=2``
+    asks for nothing less; it makes the reference's solver the same
+    program as the first pass of the drained test below."""
     ref_sys, port_sys, z0, bc = _batch(24, 5)
-    ref_opts = RefOptions(kkt_solver="pallas")
+    ref_opts = RefOptions(kkt_solver="pallas", max_iter=2)
     opts = interop.options_from_reference(ref_opts)
     assert dataclasses.asdict(opts) == dataclasses.asdict(ref_opts)
     want = ref_ipm.solve_batch(ref_sys, z0, bc_overrides=(jnp.asarray(bc),), optimizer_options=ref_opts)
@@ -76,9 +91,10 @@ def test_solve_batch_matches_reference_lane_by_lane():
 )
 def test_solve_batch_drained_matches_reference(first_pass_iters, drain_frac):
     """``first_pass_iters=1`` leaves every lane unconverged, so the drain
-    rounds (B_drain = 8 < 24 pending: several rounds, the last tiled with
+    rounds (B_drain = 8 < 12 pending: two rounds, the last tiled with
     repeated indices) produce the whole result."""
-    ref_sys, port_sys, z0, bc = _batch(24, 11)
+    B = 24 if first_pass_iters == 2 else 12
+    ref_sys, port_sys, z0, bc = _batch(B, 11)
     opts = IPOptions(kkt_solver="pallas")
     kw = dict(first_pass_iters=first_pass_iters, drain_frac=drain_frac,
               max_drain_rounds=4, return_first_pass_mask=True)
@@ -97,7 +113,7 @@ def test_solve_batch_drained_matches_reference(first_pass_iters, drain_frac):
     np.testing.assert_array_equal(iters, want[2])
     np.testing.assert_allclose(obj, want[1], rtol=1e-8)
     np.testing.assert_allclose(obj, J1 * bc[:, 0] ** 2, rtol=1e-6)
-    assert z.shape == (24, port_sys.L) and torch.isfinite(z).all()
+    assert z.shape == (B, port_sys.L) and torch.isfinite(z).all()
 
 
 _F32_REF = """

@@ -1,8 +1,8 @@
-"""The port stands on its own: importing it (and ``chip_smoke.py``) loads
-neither ``jax`` nor any module of the JAX package; its copies of the
-plain-numpy numerics, discretization blocks and mesh planner match the
-JAX package's; and its entry points ask for the CUDA card unless the
-caller passes ``device="cpu"``.
+"""The port stands on its own: importing it (and ``chip_smoke.py`` and
+``kernel_ab.py``) loads neither ``jax`` nor any module of the JAX
+package; its copies of the plain-numpy numerics, discretization blocks
+and mesh planner match the JAX package's; and its entry points ask for
+the CUDA card unless the caller passes ``device="cpu"``.
 
 Tolerance of the numerics comparison: atol 1e-13. The copies run the JAX
 package's numpy path; the JAX package may take its native C++ path for
@@ -39,10 +39,11 @@ import pockit_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pockit_tpu_torch.__path__, "pockit_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)  # defines main(); the __main__ guard keeps it from running
-assert callable(smoke.main)
+for script in ("chip_smoke", "kernel_ab"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # defines main(); the __main__ guard keeps it from running
+    assert callable(mod.main)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "pockit_tpu" or m.startswith("pockit_tpu."))
 print(len(names), bad)
