@@ -9,7 +9,10 @@ Builds ``--old-source`` and the checkout's own source with the same flags
 by default the LQR bench shapes, padded to ni_p=16, nr_p=32) in float32
 on ``--batch`` lanes (``chip_smoke.py``'s inputs). Run it at the bench
 shapes and at ``--shape 10,40,25`` (ni_p=40: the run-time interior bodies
-of the factor and apply_down, and 400 interior rows for apply_up). It:
+of the factor and apply_down, and 400 interior rows for apply_up). Any
+shape the kernels take runs: ni up to 64 and nr up to 128 after padding,
+for example the 40x10 Radau orbit transfer's ``--shape 40,37,126 --batch
+1024`` (both sources must take it). It:
 
 - prints each build's ptxas registers, stack frame and spills per kernel
   (every body, both types);
@@ -39,9 +42,14 @@ from chip_smoke import CPU_ONLY, cuda_ms, kernel_inputs, max_err, nvidia_smi
 
 def ptxas_summary(log):
     """{kernel<type, built size>: registers, stack frame and spills} from a
-    ptxas -v log."""
-    out, name = {}, None
+    ptxas -v log (the stack and spills of each kernel's own frame; a device
+    function it calls has its own properties, which are left out)."""
+    out, name, mangled, props = {}, None, None, None
     for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)  # the next stack line is this function's
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
@@ -54,9 +62,9 @@ def ptxas_summary(log):
         if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            out[name] = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
+        if m and props == mangled:  # not a device function the kernel calls
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
@@ -67,7 +75,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-source", required=True, help="the other build's .cu file")
     ap.add_argument("--rounds", type=int, default=3, help="rounds of (old, new, new, old)")
-    ap.add_argument("--shape", default="10,16,25", help="nb,ni,nr (nb >= 6)")
+    ap.add_argument("--shape", default="10,16,25",
+                    help="nb,ni,nr (nb >= 6; ni pads to at most 64, nr to at most 128)")
     ap.add_argument("--batch", type=int, default=16384, help="lanes")
     args = ap.parse_args()
 
@@ -87,6 +96,9 @@ def main():
         print(f"ptxas {side}: {json.dumps(ptxas[side])}", flush=True)
 
     nb, ni, nr = (int(v) for v in args.shape.split(","))
+    if nb < 6 or -(-ni // 8) * 8 > ck.MAX_INTERIOR or -(-nr // 8) * 8 > ck.MAX_REDUCED:
+        raise SystemExit(f"--shape {args.shape}: nb >= 6, ni up to {ck.MAX_INTERIOR} and nr up to "
+                         f"{ck.MAX_REDUCED} after padding to multiples of 8")
     B, dtype = args.batch, torch.float32
     core = ck.make_core(np.arange(nb * ni).reshape(nb, ni), np.arange(nb * ni, nb * ni + nr),
                         nb * ni + nr)

@@ -1,11 +1,12 @@
 """pockit_tpu_torch: the PyTorch/CUDA port of pockit_tpu.
 
 The same SymPy frontend (``System`` / ``Phase`` / ``Variable`` on LGL
-meshes), transcription with derivatives from ``torch.func``, and the
-batched filter-line-search interior-point solver over the block-arrow KKT
-matrix, whose factorization and back-solves run as hand-written CUDA
-kernels on an NVIDIA Hopper card (``solver/cuda_kkt.py``,
-``csrc/block_arrow_kkt.cu``).
+meshes, ``lobatto``, and LGR meshes, ``radau``, with linked multi-phase
+systems and check/refine), transcription with derivatives from
+``torch.func``, and the batched filter-line-search interior-point solver
+over the block-arrow KKT matrix, whose factorization and back-solves run
+as hand-written CUDA kernels on an NVIDIA Hopper card
+(``solver/cuda_kkt.py``, ``csrc/block_arrow_kkt.cu``).
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
 package: it keeps its own copies of the plain-numpy modules it needs, the
@@ -21,7 +22,8 @@ Its entry points (``optimizer.ipm.solve``, ``solve_batch``,
 __version__ = "0.1.0"
 
 _SUBPACKAGES = {
-    "base", "lobatto", "numerics", "transcription", "solver", "optimizer", "interop",
+    "base", "lobatto", "radau", "numerics", "transcription", "solver", "optimizer", "interop",
+    "utils",
 }
 
 

@@ -27,7 +27,8 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxN = 64;          // widest padded block (cuda_kkt.MAX_BLOCK)
+constexpr int kMaxInterior = 64;   // widest padded interior block (cuda_kkt.MAX_INTERIOR)
+constexpr int kMaxReduced = 128;   // widest padded reduced block (cuda_kkt.MAX_REDUCED)
 constexpr int kUpWarps = 8;        // most warps of an apply_up CTA
 constexpr int kSmemMax = 232448;   // shared memory one H100 CTA may opt into (227 KB)
 constexpr int kSmemDefault = 49152;  // without opting in (48 KB)
@@ -71,7 +72,7 @@ __device__ __forceinline__ T tree_sum_n(T (&a)[M]) {
 // the lowest up at the end. Every index is compile-time: registers only.
 template <typename T>
 struct TreeAcc {
-  static constexpr int kLevels = 7;  // up to 127 terms
+  static constexpr int kLevels = 7;  // up to 127 terms: every dot of a block up to 128
   T st[kLevels];
   int n = 0;
   __device__ __forceinline__ void push(T p) {
@@ -156,7 +157,7 @@ __device__ __forceinline__ void blk_solve_n(T (&x)[N], FL&& L, FS&& sc) {
   for (int k = 0; k < N; ++k) x[k] = x[k] * sc(k);
 }
 
-// The same for a run-time size n <= 64, x in shared memory at x[k * 32],
+// The same for a run-time size n <= 128, x in shared memory at x[k * 32],
 // L(k, j) at L[(k n + j) ld] and sc(k) at sc[k ld] (one lane of a
 // batch-last block in device memory); the solution is also written to
 // out[k ld] in the loop that scales it, as both callers need it there.
@@ -286,30 +287,42 @@ __device__ void chol_interior(T* A, T* sc, T* slot, int n_real, T d, int w, T& d
   });
 }
 
-// The same for a run-time size nn <= 64 (the reduced block, and interiors
-// of a size the kernel is not built for): worker w owns rows w and w + 32;
-// the column dots stream through TreeAcc.
+// Column k's entry of row i in chol_rt before its pivot: the shifted,
+// scaled entry less its dot over the columns before k (through TreeAcc).
 template <typename T>
-__device__ void chol_rt(T* A, int ld, int nn, int n_real, T d, T* sc, T* slot, int w, T& dmin,
-                        T& dmax) {
-  for (int i = w; i < nn; i += kWarp) sc[i] = T(1) / sqrt(nan_max(A[i * ld + i] + d, T(1e-30)));
-  __syncwarp();
-  dmin = inf_val<T>();
-  dmax = -inf_val<T>();
+__device__ __forceinline__ T chol_entry(const T* A, int ld, int i, int k, T d, const T* sc) {
+  T vi = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
+  if (k) {
+    TreeAcc<T> acc;
+    for (int j = 0; j < k; ++j) acc.push(A[i * ld + j] * A[k * ld + j]);
+    vi = vi - acc.total();
+  }
+  return vi;
+}
+
+// chol_rt's columns. Q = 2: worker w holds its rows w and w + 32 in
+// registers across each pivot's sync (nn <= 64). Q = 0: worker w owns rows
+// w + 32 q, any number of them, and a row's unscaled entry waits in its own
+// place A[i][k] for the pivot (column k's dots read only columns < k).
+template <typename T, int Q>
+__device__ __forceinline__ void chol_rt_cols(T* A, int ld, int nn, int n_real, T d, const T* sc,
+                                             T* slot, int w, T& dmin, T& dmax) {
   for (int k = 0; k < nn; ++k) {
-    T v[2];
+    T v[Q > 0 ? Q : 1];
+    if constexpr (Q > 0) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = w + kWarp * q;
-      v[q] = T(0);
-      if (i < nn) {
-        T vi = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
-        if (k) {
-          TreeAcc<T> acc;
-          for (int j = 0; j < k; ++j) acc.push(A[i * ld + j] * A[k * ld + j]);
-          vi = vi - acc.total();
+      for (int q = 0; q < Q; ++q) {
+        const int i = w + kWarp * q;
+        v[q] = T(0);
+        if (i < nn) {
+          v[q] = chol_entry(A, ld, i, k, d, sc);
+          if (i == k) *slot = v[q];
         }
-        v[q] = vi;
+      }
+    } else {
+      for (int i = w; i < nn; i += kWarp) {
+        const T vi = chol_entry(A, ld, i, k, d, sc);
+        A[i * ld + k] = vi;
         if (i == k) *slot = vi;
       }
     }
@@ -320,13 +333,43 @@ __device__ void chol_rt(T* A, int ld, int nn, int n_real, T d, T* sc, T* slot, i
       dmax = nan_max(dmax, dk);
     }
     const T inv = T(1) / dk;
+    if constexpr (Q > 0) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = w + kWarp * q;
-      if (i < nn) A[i * ld + k] = v[q] * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+      for (int q = 0; q < Q; ++q) {
+        const int i = w + kWarp * q;
+        if (i < nn) A[i * ld + k] = v[q] * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+      }
+    } else {
+      for (int i = w; i < nn; i += kWarp)
+        A[i * ld + k] = A[i * ld + k] * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
     }
     __syncwarp();
   }
+}
+
+// Blocks wider than 64 take chol_rt_cols<T, 0> through a call of its own,
+// so that its registers do not weigh on the kernels' other paths.
+template <typename T>
+__device__ __noinline__ void chol_rt_wide(T* A, int ld, int nn, int n_real, T d, const T* sc,
+                                          T* slot, int w, T& dmin, T& dmax) {
+  chol_rt_cols<T, 0>(A, ld, nn, n_real, d, sc, slot, w, dmin, dmax);
+}
+
+// The same for a run-time size nn <= 128 (the reduced block, and interiors
+// of a size the kernel is not built for); the column dots stream through
+// TreeAcc. Up to 64 rows, two a worker in registers; above, a loop over
+// rows in shared memory.
+template <typename T>
+__device__ void chol_rt(T* A, int ld, int nn, int n_real, T d, T* sc, T* slot, int w, T& dmin,
+                        T& dmax) {
+  for (int i = w; i < nn; i += kWarp) sc[i] = T(1) / sqrt(nan_max(A[i * ld + i] + d, T(1e-30)));
+  __syncwarp();
+  dmin = inf_val<T>();
+  dmax = -inf_val<T>();
+  if (nn <= 2 * kWarp)
+    chol_rt_cols<T, 2>(A, ld, nn, n_real, d, sc, slot, w, dmin, dmax);
+  else
+    chol_rt_wide<T>(A, ld, nn, n_real, d, sc, slot, w, dmin, dmax);
 }
 
 // t = L^{-1} (sc K_ir), column by column (worker w owns columns w + 32 q),
@@ -459,8 +502,12 @@ __device__ void bwd_sub_cols_rt(const T* L, int ld, const T* sc, T* X, int ni, i
 // NI = 0 takes any other interior size up to 64 at run time, with the
 // sweeps in shared memory (the *_rt functions). Retries reload the block's
 // input for that lane alone (the factorization is in place). The reduced
-// block (run-time nr_p <= 64) is factored at the end from S; when retries
-// are allowed S is first saved to s_scr.
+// block (run-time nr_p <= 128) is factored at the end from S; when retries
+// are allowed S is first saved to s_scr. Wide reduced blocks leave room
+// for fewer lanes: at (ni_p 40, nr_p 128) a float lane takes 93,776 bytes
+// (2 lanes per CTA) and a double lane 187,552 (1); at (64, 128) a double
+// lane takes 232,480 bytes, 32 more than a CTA may hold, and the launcher
+// refuses that shape.
 // Several CTAs per SM overlap one CTA's loads with another's compute:
 // the launch bound asks for 3 (the float tile takes 60.5 KB of shared
 // memory at the bench shapes, and ptxas then fits 80 registers with a few
@@ -621,7 +668,9 @@ factor_kernel(const T* __restrict__ kii, const T* __restrict__ kir, const T* __r
 // into shared memory. After each chunk of bw blocks the CTA applies
 // r_red[c] -= s_b[c] in block order, so r_red = b_r - s_0 - s_1 - ... as
 // in the reference. NI = 0 takes any other interior size up to 64 at run
-// time, with x in shared memory (blk_solve_rt).
+// time, with x in shared memory (blk_solve_rt). Reduced blocks wider than
+// 64 (r_red's row alone takes up to 32 KB in double) take the warps that
+// fit in the opted-in 227 KB instead of the default 48 KB.
 template <typename T, int NI>
 __global__ void __launch_bounds__(512)
 apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
@@ -726,7 +775,7 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src) {
 // r_red into shared memory with cp.async (all copies in flight at once,
 // 75.8 KB per CTA in float at NR = 32), and warp 0 then runs the dependent
 // chain of 2 NR divisions from shared memory with x in registers; NR = 0
-// takes any other size up to 64 at run time, reading L_r from device
+// takes any other size up to 128 at run time, reading L_r from device
 // memory with x in shared memory. x_r goes to shared memory as [nr][32]
 // (conflict-free). Part 2, x_i = x_bi - X_ir x_r, after one
 // __syncthreads: the interior rows (b, i) are independent, so they are one
@@ -829,16 +878,16 @@ apply_up_kernel(const T* __restrict__ lr, const T* __restrict__ scr,
 // Run fn(Int<N>{}) for the padded sizes the kernels are built for
 // (cuda_kkt.KERNEL_SIZES: the interiors of the factor and apply_down,
 // apply_up's reduced block), fn(Int<0>{}) (the run-time size) for any
-// other size up to 64.
+// other size up to max_n.
 template <typename F>
-int dispatch_n(int n, F&& fn) {
+int dispatch_n(int n, int max_n, F&& fn) {
   switch (n) {
     case 8: return fn(Int<8>{});
     case 16: return fn(Int<16>{});
     case 24: return fn(Int<24>{});
     case 32: return fn(Int<32>{});
     default:
-      if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
+      if (n < 1 || n > max_n) return (int)cudaErrorInvalidValue;
       return fn(Int<0>{});
   }
 }
@@ -857,12 +906,12 @@ int launch_factor(const T* kii, const T* kir, const T* krr, const T* delta, T* l
                   T* xir, T* lr, T* scr, T* piv, T* dblk, T* s_scr, int nb, int ni_p, int nr_p,
                   int ni_real, int nr_real, int Bp, double rtol, double floor_d, int attempts,
                   cudaStream_t stream) {
-  if (nr_p < 1 || nr_p > kMaxN || ni_p < 1 || ni_p > kMaxN || Bp < 1)
+  if (nr_p < 1 || nr_p > kMaxReduced || ni_p < 1 || ni_p > kMaxInterior || Bp < 1)
     return (int)cudaErrorInvalidValue;
   const int TL = factor_tile<T>(ni_p, nr_p);
   if (TL < 1) return (int)cudaErrorInvalidValue;
   const int smem = TL * FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
-  return dispatch_n(ni_p, [&](auto nic) {
+  return dispatch_n(ni_p, kMaxInterior, [&](auto nic) {
     constexpr int NI = decltype(nic)::value;
     auto kernel = factor_kernel<T, NI>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -877,18 +926,25 @@ int launch_factor(const T* kii, const T* kir, const T* krr, const T* delta, T* l
 template <typename T>
 int launch_apply_down(const T* li, const T* sci, const T* kir, const T* bi, const T* br, T* xbi,
                       T* rred, int nb, int ni_p, int nr_p, int Bp, cudaStream_t stream) {
-  if (nb < 1 || nr_p < 1 || nr_p > kMaxN || Bp < 1) return (int)cudaErrorInvalidValue;
-  return dispatch_n(ni_p, [&](auto nic) {
+  if (nb < 1 || nr_p < 1 || nr_p > kMaxReduced || Bp < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_n(ni_p, kMaxInterior, [&](auto nic) {
     constexpr int NI = decltype(nic)::value;
-    // blocks per chunk: up to 16 warps, shared memory within the default
-    // 48 KB (r_red, and per warp its s_b and, at run-time sizes, its x)
+    // blocks per chunk: up to 16 warps, shared memory (r_red, and per warp
+    // its s_b and, at run-time sizes, its x) within the default 48 KB, or
+    // within the opted-in 227 KB for reduced blocks wider than 64
     const int row = nr_p * kWarp * (int)sizeof(T);
     const int xrow = NI > 0 ? 0 : ni_p * kWarp * (int)sizeof(T);
-    int bw = (kSmemDefault - row) / (row + xrow);
+    const int budget = nr_p > 64 ? kSmemMax : kSmemDefault;
+    int bw = (budget - row) / (row + xrow);
     bw = bw < 16 ? bw : 16;
     bw = bw < nb ? bw : nb;
     const int smem = row + bw * (row + xrow);
-    apply_down_kernel<T, NI><<<(Bp + kWarp - 1) / kWarp, dim3(kWarp, bw), smem, stream>>>(
+    auto kernel = apply_down_kernel<T, NI>;
+    if (smem > kSmemDefault) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(Bp + kWarp - 1) / kWarp, dim3(kWarp, bw), smem, stream>>>(
         li, sci, kir, bi, br, xbi, rred, nb, ni_p, nr_p, Bp);
     return (int)cudaGetLastError();
   });
@@ -901,10 +957,10 @@ int launch_apply_down(const T* li, const T* sci, const T* kir, const T* bi, cons
 // take. The launcher launches exactly this (cuda_kkt.apply_up_launch
 // reads it).
 int up_launch(int nb, int ni_p, int nr_p, int Bp, int item, int* up) {
-  if (nb < 1 || ni_p < 1 || ni_p > kMaxN || nr_p < 1 || nr_p > kMaxN || Bp < 1)
+  if (nb < 1 || ni_p < 1 || ni_p > kMaxInterior || nr_p < 1 || nr_p > kMaxReduced || Bp < 1)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)nb * ni_p;
-  up[0] = dispatch_n(nr_p, [](auto nrc) { return decltype(nrc)::value; });
+  up[0] = dispatch_n(nr_p, kMaxReduced, [](auto nrc) { return decltype(nrc)::value; });
   up[1] = rows < kUpWarps ? (int)rows : kUpWarps;
   up[2] = up_smem_elems(up[0], nr_p) * item;
   return (int)cudaSuccess;
@@ -916,7 +972,7 @@ int launch_apply_up(const T* lr, const T* scr, const T* rred, const T* xir, cons
   int up[3];
   if (int e = up_launch(nb, ni_p, nr_p, Bp, (int)sizeof(T), up)) return e;
   const int bw = up[1], smem = up[2];
-  return dispatch_n(nr_p, [&](auto nrc) {
+  return dispatch_n(nr_p, kMaxReduced, [&](auto nrc) {
     constexpr int NR = decltype(nrc)::value;
     auto kernel = apply_up_kernel<T, NR>;
     if (smem > kSmemDefault) {

@@ -21,10 +21,13 @@ trailing, lanes padded to a multiple of 128, rows padded to multiples of
 tensors runs the plain version (``*_ref``), which computes exactly what
 the Pallas body computes, in the same summation order; given CUDA tensors
 it launches the kernel or raises. Each kernel launch adds one to its entry
-in :data:`LAUNCHES`.
+in :data:`LAUNCHES` and records its padded shape ``(nb, ni_p, nr_p)`` in
+:data:`LAUNCH_SHAPES`.
 
-Every kernel takes padded blocks up to :data:`MAX_BLOCK`; the wrappers
-raise ``ValueError`` for wider ones, before any launch. The factor and
+Every kernel takes padded interior blocks up to :data:`MAX_INTERIOR` and
+reduced blocks up to :data:`MAX_REDUCED`; the wrappers raise
+``ValueError`` for wider ones, and the factor for a shape of which not
+one lane fits in shared memory, before any launch. The factor and
 apply_down kernels have compile-time bodies for the padded interior sizes
 in :data:`KERNEL_SIZES`, apply_up for padded reduced blocks of those
 sizes; every other size selects the kernel's run-time body
@@ -56,18 +59,21 @@ from pockit_tpu_torch.solver.structured import (
 )
 
 _BT = 128  # lane padding of pad_move
-MAX_BLOCK = 64  # widest padded block (interior or reduced) the kernels take
+MAX_INTERIOR = 64  # widest padded interior block the kernels take
+MAX_REDUCED = 128  # widest padded reduced block the kernels take
 # padded sizes with compile-time bodies: the interiors of the factor and
 # apply_down, apply_up's reduced block
 KERNEL_SIZES = (8, 16, 24, 32)
 SMEM_MAX = 232_448  # shared memory one H100 CTA may opt into (227 KB)
 
 LAUNCHES = {"factor": 0, "apply_down": 0, "apply_up": 0}
+LAUNCH_SHAPES = {k: set() for k in LAUNCHES}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_SHAPES[k].clear()
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -85,8 +91,9 @@ def factor_lane_bytes(ni_p: int, nr_p: int, dtype) -> int:
 def factor_tile_lanes(ni_p: int, nr_p: int, dtype) -> int:
     """Lanes per factor CTA, as the CUDA launcher picks them: one 32-byte
     sector of each element (8 float32 or 4 float64 lanes), or fewer where
-    that tile would not fit in :data:`SMEM_MAX`. At ``MAX_BLOCK`` a float64
-    lane takes 100 KB, so every shape the kernels take fits 2 lanes."""
+    that tile would not fit in :data:`SMEM_MAX`; 0 where one lane does not
+    fit, a shape the launcher refuses (a float64 lane at (64, 128) takes
+    232,480 bytes, 32 more than a CTA may hold)."""
     item = torch.empty((), dtype=dtype).element_size()
     return min(32 // item, SMEM_MAX // factor_lane_bytes(ni_p, nr_p, dtype))
 
@@ -109,21 +116,25 @@ def apply_up_launch(nb: int, ni_p: int, nr_p: int, lanes: int, dtype) -> dict:
 
 def _check_kernel_shape(ni_p: int, nr_p: int):
     """Raise for padded blocks wider than the kernels take."""
-    if max(ni_p, nr_p) > MAX_BLOCK:
-        raise ValueError(f"padded blocks wider than {MAX_BLOCK} are not supported")
+    if ni_p > MAX_INTERIOR:
+        raise ValueError(f"padded interior blocks wider than {MAX_INTERIOR} are not supported")
+    if nr_p > MAX_REDUCED:
+        raise ValueError(f"padded reduced blocks wider than {MAX_REDUCED} are not supported")
 
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
+# operations/s of each type at its fastest (float32 outside the tensor
+# cores, float64 on them)
 H100_BYTES_PER_S = 3.35e12
-H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+H100_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def _chol_ops(n: int) -> int:
-    """Operations of one equilibrated Cholesky as the kernels compute it:
-    sc (3 n), per column a sqrt and a division, per row and column the
-    scaled entry (4), its tree-summed dot (2k) and the masked write (4)."""
-    return n**3 + 7 * n**2 + 4 * n
+    """Operations one equilibrated Cholesky needs: sc (3 n), and per entry
+    on or below the diagonal the scaled entry (3), its dot over the columns
+    before it (2 j) and the division by the pivot (on the diagonal, the
+    sqrt). About n^3 / 3: the entries above the diagonal are none of its work."""
+    return (n - 1) * n * (n + 1) // 3 + 2 * n * (n + 1) + 3 * n
 
 
 def lane_bytes(name: str, nb: int, ni_p: int, nr_p: int, itemsize: int) -> int:
@@ -148,11 +159,12 @@ def lane_bytes(name: str, nb: int, ni_p: int, nr_p: int, itemsize: int) -> int:
 
 
 def lane_ops(name: str, nb: int, ni_p: int, nr_p: int) -> int:
-    """Arithmetic operations (each add, multiply, divide and sqrt one) of
-    one lane's call, with one Cholesky attempt per block."""
+    """Arithmetic operations (each add, multiply, divide and sqrt one) that
+    one lane's call needs, with one Cholesky attempt per block. The factor's
+    Schur update counts the lower half of S, all the reduced Cholesky reads."""
     if name == "factor":
         sub = nr_p * (ni_p**2 + ni_p)  # one triangular solve of the nr_p columns
-        per_block = _chol_ops(ni_p) + 2 * sub + 2 * ni_p * nr_p**2
+        per_block = _chol_ops(ni_p) + 2 * sub + ni_p * nr_p * (nr_p + 1)
         return nb * per_block + 2 * nr_p**2 + _chol_ops(nr_p)
     if name == "apply_down":
         return nb * (2 * ni_p**2 + 2 * ni_p + 2 * ni_p * nr_p + nr_p)
@@ -366,12 +378,13 @@ def _kernel(name, dtype):
     return getattr(load(), f"bak_{name}_{suffix}")
 
 
-def _launch(name, fn, *args):
+def _launch(name, shape, fn, *args):
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name].add(shape)
 
 
 def factor_blocks(
@@ -394,6 +407,10 @@ def factor_blocks(
     nr_p = K_rr.shape[0]
     dt = K_ii.dtype
     _check_kernel_shape(ni_p, nr_p)
+    if factor_tile_lanes(ni_p, nr_p, dt) < 1:
+        raise ValueError(f"one factor lane at ni_p={ni_p}, nr_p={nr_p} in {dt} takes "
+                         f"{factor_lane_bytes(ni_p, nr_p, dt)} bytes of shared memory, "
+                         f"more than the {SMEM_MAX} a CTA may hold")
     _check("K_ii", K_ii, (nb, ni_p, ni_p, BT), dt)
     _check("K_ir", K_ir, (nb, ni_p, nr_p, BT), dt)
     _check("K_rr", K_rr, (nr_p, nr_p, BT), dt)
@@ -403,7 +420,7 @@ def factor_blocks(
            e(nr_p), e(4), e(nb + 1))
     s_scr = e(nr_p, nr_p)
     _launch(
-        "factor", _kernel("factor", dt), K_ii, K_ir, K_rr, delta, *out, s_scr,
+        "factor", (nb, ni_p, nr_p), _kernel("factor", dt), K_ii, K_ir, K_rr, delta, *out, s_scr,
         nb, ni_p, nr_p, int(ni_real), int(nr_real), BT,
         float(pivot_rtol), float(delta_floor), int(attempts),
     )
@@ -427,7 +444,7 @@ def apply_down(L_i, sc_i, K_ir, b_i, b_r):
     x_bi = torch.empty_like(b_i)
     r_red = torch.empty_like(b_r)
     _launch(
-        "apply_down", _kernel("apply_down", dt), L_i, sc_i, K_ir, b_i, b_r,
+        "apply_down", (nb, ni_p, nr_p), _kernel("apply_down", dt), L_i, sc_i, K_ir, b_i, b_r,
         x_bi, r_red, nb, ni_p, nr_p, BT,
     )
     return x_bi, r_red
@@ -450,7 +467,7 @@ def apply_up(L_r, sc_r, r_red, X_ir, x_bi):
     x_r = torch.empty_like(r_red)
     x_i = torch.empty_like(x_bi)
     _launch(
-        "apply_up", _kernel("apply_up", dt), L_r, sc_r, r_red, X_ir, x_bi,
+        "apply_up", (nb, ni_p, nr_p), _kernel("apply_up", dt), L_r, sc_r, r_red, X_ir, x_bi,
         x_r, x_i, nb, ni_p, nr_p, BT,
     )
     return x_r, x_i

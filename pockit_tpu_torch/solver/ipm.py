@@ -11,6 +11,11 @@ The port of ``pockit_tpu/solver/ipm.py`` on the block-arrow KKT paths
   or the hand-written CUDA kernels (``solver/cuda_kkt.py``).
 - **Wächter-Biegler filter line search** with second-order correction and
   a Gauss-Newton feasibility fallback.
+- **Barrier update**: the monotone Fiacco-McCormick ladder, or Mehrotra
+  probing (``mu_strategy="mehrotra"``): the factorization's first solve is
+  the affine (mu = 0) step, whose complementarity retargets mu by the
+  cubic rule; the centred and corrected right-hand side is then solved
+  against the same factors.
 
 **Batch-first.** Every state tensor carries a leading lane axis ``B``. The
 reference runs one lane's solve under ``jax.vmap``; a vmapped
@@ -177,10 +182,10 @@ def _check_ported(opt: IPOptions):
                 f"{var} is a developer hook of the JAX reference and is not "
                 "ported (ROADMAP queue 1 item 13)"
             )
-    if opt.mu_strategy != "monotone":
+    if opt.mu_strategy not in ("monotone", "mehrotra"):
         raise NotImplementedError(
             f"mu_strategy={opt.mu_strategy!r} is not ported; only 'monotone' "
-            "(ROADMAP queue 1 item 9)"
+            "and 'mehrotra' (ROADMAP queue 1 item 9)"
         )
     if opt.kkt_solver not in ("auto", "block", "pallas"):
         raise NotImplementedError(
@@ -221,6 +226,7 @@ def make_ip_solver(
     """
     opt = options
     _check_ported(opt)
+    mehrotra = opt.mu_strategy == "mehrotra"
     if block is None:
         raise NotImplementedError(
             "problems without a block-arrow layout need the dense KKT path, "
@@ -499,18 +505,25 @@ def make_ip_solver(
             # batched escalation or line-search loops
             active = ~(st.done | newly_done | blown)
 
-            # -- monotone barrier update; filter resets with mu -----------
-            E_mu = _kkt_error(z, s, y, w_l, w_u, v_l, v_u, g, jty, c0, mu)
-            shrink = E_mu <= opt.kappa_eps * mu
-            mu = torch.where(
-                shrink,
-                torch.clamp_min(
-                    torch.minimum(opt.kappa_mu * mu, mu**opt.theta_mu), opt.tol / 10.0
-                ),
-                mu,
-            )
-            th_f = _sel(shrink, th_f0, st.th_f)
-            ph_f = _sel(shrink, ph_f0, st.ph_f)
+            # -- barrier update -----------------------------------------
+            if mehrotra:
+                # mu is retargeted after the affine probe below, which
+                # needs this iteration's factorization; the matrix is
+                # assembled at the state's mu and the filter is kept
+                th_f, ph_f = st.th_f, st.ph_f
+            else:
+                # monotone ladder; the filter resets with mu
+                E_mu = _kkt_error(z, s, y, w_l, w_u, v_l, v_u, g, jty, c0, mu)
+                shrink = E_mu <= opt.kappa_eps * mu
+                mu = torch.where(
+                    shrink,
+                    torch.clamp_min(
+                        torch.minimum(opt.kappa_mu * mu, mu**opt.theta_mu), opt.tol / 10.0
+                    ),
+                    mu,
+                )
+                th_f = _sel(shrink, th_f0, st.th_f)
+                ph_f = _sel(shrink, ph_f0, st.ph_f)
 
             # -- assemble condensed system ------------------------------
             al, au, bl, bu = _bound_gaps(z, s)
@@ -525,7 +538,12 @@ def make_ip_solver(
             mu_c = col(mu)
             g_z = g + jty - mu_c * inv_al + mu_c * inv_au
             g_s = torch.where(eq, 0.0, -y - mu_c * inv_bl + mu_c * inv_bu)
-            rhs = -g_z - jt_mv(D * r_c + g_s)
+            if mehrotra:
+                # the factorization's trial solve probes the affine (mu = 0)
+                # system; the centred rhs is re-solved after the probe
+                rhs = -(g + jty) - jt_mv(D * r_c + torch.where(eq, 0.0, -y))
+            else:
+                rhs = -g_z - jt_mv(D * r_c + g_s)
 
             K_ii0, K_ir0, K_rr0 = assemble_b(z, y, D, rt)
             eye_ni = torch.eye(K_ii0.shape[-1], dtype=dtype, device=dev)
@@ -641,6 +659,81 @@ def make_ip_solver(
                 def chol_solve(b):
                     return lin_apply(fac_k, b)
 
+            if mehrotra:
+                # -- Mehrotra probe: measure how much complementarity the
+                # affine step would retire, retarget mu by the cubic rule,
+                # then solve the centred and corrected rhs against the same
+                # factors (one more back-substitution) -----------------
+                dz_aff = dz
+                ds_a = torch.where(eq, 0.0, j_mv(dz_aff) + r_c)
+                dw_l_a = torch.where(has_zl, -w_l - w_l * inv_al * dz_aff, 0.0)
+                dw_u_a = torch.where(has_zu, -w_u + w_u * inv_au * dz_aff, 0.0)
+                dv_l_a = torch.where(has_cl, -v_l - v_l * inv_bl * ds_a, 0.0)
+                dv_u_a = torch.where(has_cu, -v_u + v_u * inv_bu * ds_a, 0.0)
+                one = full(1.0)
+                a_p = torch.minimum(
+                    torch.minimum(
+                        _max_step(has_zl, al, dz_aff, one), _max_step(has_zu, au, -dz_aff, one)
+                    ),
+                    torch.minimum(
+                        _max_step(has_cl, bl, ds_a, one), _max_step(has_cu, bu, -ds_a, one)
+                    ),
+                )
+                a_d = torch.minimum(
+                    torch.minimum(
+                        _max_step(has_zl, w_l, dw_l_a, one), _max_step(has_zu, w_u, dw_u_a, one)
+                    ),
+                    torch.minimum(
+                        _max_step(has_cl, v_l, dv_l_a, one), _max_step(has_cu, v_u, dv_u_a, one)
+                    ),
+                )
+
+                def _comp(al_, au_, bl_, bu_, wl_, wu_, vl_, vu_):
+                    return (
+                        torch.where(has_zl, al_ * wl_, 0.0).sum(-1)
+                        + torch.where(has_zu, au_ * wu_, 0.0).sum(-1)
+                        + torch.where(has_cl, bl_ * vl_, 0.0).sum(-1)
+                        + torch.where(has_cu, bu_ * vu_, 0.0).sum(-1)
+                    )
+
+                n_comp = has_zl.sum(-1) + has_zu.sum(-1) + has_cl.sum(-1) + has_cu.sum(-1)
+                denom = torch.clamp_min(n_comp, 1).to(dtype)
+                avg = _comp(al, au, bl, bu, w_l, w_u, v_l, v_u) / denom
+                ap, ad = col(a_p), col(a_d)
+                mu_aff = _comp(
+                    al + ap * dz_aff, au - ap * dz_aff, bl + ap * ds_a, bu - ap * ds_a,
+                    w_l + ad * dw_l_a, w_u + ad * dw_u_a, v_l + ad * dv_l_a, v_u + ad * dv_u_a,
+                ) / denom
+                sigma = torch.clamp((mu_aff / torch.clamp_min(avg, 1e-30)) ** 3, 0.0, 1.0)
+                mu_m = torch.clamp(sigma * avg, opt.tol / 10.0, opt.mu_init)
+                probe_ok = (
+                    (n_comp > 0) & torch.isfinite(mu_m) & reg_ok
+                    & torch.isfinite(dz_aff).all(-1)
+                )
+                mu = torch.where(probe_ok, mu_m, mu)
+                mu_c = col(mu)
+                # second-order corrector: per-element complementarity
+                # targets mu - da_aff * dw_aff, clipped into [0, 10 mu];
+                # zeroed where the probe itself is unusable
+                corr = col(probe_ok.to(dtype))
+                clip = lambda t: torch.minimum(torch.clamp_min(t, 0.0), 10.0 * mu_c)
+                t_zl = clip(mu_c - corr * dz_aff * dw_l_a)
+                t_zu = clip(mu_c + corr * dz_aff * dw_u_a)
+                t_sl = clip(mu_c - corr * ds_a * dv_l_a)
+                t_su = clip(mu_c + corr * ds_a * dv_u_a)
+                # the centred and corrected direction at the retargeted mu;
+                # g_z and g_s are rebound, so the saddle refinement and the
+                # dual recovery below target the corrected system
+                g_z = g + jty - t_zl * inv_al + t_zu * inv_au
+                g_s = torch.where(eq, 0.0, -y - t_sl * inv_bl + t_su * inv_bu)
+                dz_c = chol_solve(-g_z - jt_mv(D * r_c + g_s))
+                ok_c = torch.isfinite(dz_c).all(-1) & (
+                    torch.linalg.vector_norm(dz_c, dim=-1) <= step_cap
+                )
+                dz = _sel(ok_c, dz_c, dz)
+            else:
+                t_zl = t_zu = t_sl = t_su = mu_c
+
             def _expand(dz_):
                 """Recover slack/dual directions from a primal direction."""
                 Jdz_ = j_mv(dz_)
@@ -688,10 +781,12 @@ def make_ip_solver(
             dy_cap = 1e3 * (1.0 + _amax0(y.abs()))
             dy_norm = _amax0(dy.abs())
             dy = dy * col(torch.clamp(dy_cap / torch.clamp_min(dy_norm, 1e-30), max=1.0))
-            dw_l = torch.where(has_zl, mu_c * inv_al - w_l - w_l * inv_al * dz, 0.0)
-            dw_u = torch.where(has_zu, mu_c * inv_au - w_u + w_u * inv_au * dz, 0.0)
-            dv_l = torch.where(has_cl, mu_c * inv_bl - v_l - v_l * inv_bl * ds, 0.0)
-            dv_u = torch.where(has_cu, mu_c * inv_bu - v_u + v_u * inv_bu * ds, 0.0)
+            # t_* are the per-element complementarity targets: mu for the
+            # monotone rule, the clipped corrector targets for Mehrotra
+            dw_l = torch.where(has_zl, t_zl * inv_al - w_l - w_l * inv_al * dz, 0.0)
+            dw_u = torch.where(has_zu, t_zu * inv_au - w_u + w_u * inv_au * dz, 0.0)
+            dv_l = torch.where(has_cl, t_sl * inv_bl - v_l - v_l * inv_bl * ds, 0.0)
+            dv_u = torch.where(has_cu, t_su * inv_bu - v_u + v_u * inv_bu * ds, 0.0)
 
             # -- fraction to boundary -----------------------------------
             tau = torch.clamp_min(1.0 - mu, opt.tau_min)

@@ -5,8 +5,13 @@ CPU), and the kernels against their plain versions on a CUDA card.
 Shapes are small: (nb, ni, nr) = (4, 6, 7) pads rows to (8, 8), and B = 5
 pads the lanes to 128. One lane has an indefinite interior block, which
 the in-kernel retry ladder (attempts 3) resolves and a single attempt
-rejects.
+rejects. Two wide reduced blocks as the Radau problems make them: (24, 72),
+the 15x8 LGL orbit's padded shape, against the Pallas kernels; (40, 128),
+the 40x10 Radau orbit's, against the reference's block core (the Pallas
+interpreter takes over three minutes at that width on the CPU).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +21,9 @@ import torch
 
 from pockit_tpu.solver.pallas_kkt import _make_pallas_core
 from pockit_tpu.solver.pallas_kkt import make_newton_dir as ref_newton_dir
-from pockit_tpu_torch.solver import cuda_kkt
+from pockit_tpu.solver.structured import make_block_arrow_core as ref_block_core
+from pockit_tpu_torch.solver import _build, cuda_kkt
+from pockit_tpu_torch.solver.structured import _tree_sum
 
 NB, NI, NR, B = 4, 6, 7, 5
 PIVOT_RTOL = 2.0 * float(np.sqrt(np.finfo(np.float32).eps))
@@ -26,20 +33,20 @@ FLOOR = 0.1  # retry ladder 0 -> 0.1 -> 1.0
 RTOL = {np.float32: 1e-5, np.float64: 1e-12}
 
 
-def problem(seed, dtype):
+def problem(seed, dtype, nb=NB, ni=NI, nr=NR):
     """Batch-leading block-arrow blocks and right-hand sides; lane 2's
     interior block 1 has one eigenvalue at -0.5."""
     rng = np.random.default_rng(seed)
-    n = NB * NI + NR
-    interior = np.arange(NB * NI).reshape(NB, NI)
-    reduced = np.arange(NB * NI, n)
-    Q, _ = np.linalg.qr(rng.standard_normal((B, NB, NI, NI)))
-    lam = rng.uniform(1.0, 10.0, (B, NB, NI))
+    n = nb * ni + nr
+    interior = np.arange(nb * ni).reshape(nb, ni)
+    reduced = np.arange(nb * ni, n)
+    Q, _ = np.linalg.qr(rng.standard_normal((B, nb, ni, ni)))
+    lam = rng.uniform(1.0, 10.0, (B, nb, ni))
     lam[2, 1, 0] = -0.5
     K_ii = np.einsum("bkij,bkj,bklj->bkil", Q, lam, Q)
-    K_ir = rng.standard_normal((B, NB, NI, NR)) * 0.3
-    A = rng.standard_normal((B, NR, NR))
-    K_rr = A @ np.swapaxes(A, -1, -2) + 4 * NR * np.eye(NR)
+    K_ir = rng.standard_normal((B, nb, ni, nr)) * 0.3
+    A = rng.standard_normal((B, nr, nr))
+    K_rr = A @ np.swapaxes(A, -1, -2) + 4 * nr * np.eye(nr)
     rhs = rng.standard_normal((B, n))
     cast = lambda a: a.astype(dtype)
     return interior, reduced, n, cast(K_ii), cast(K_ir), cast(K_rr), cast(rhs)
@@ -51,14 +58,22 @@ def _close(got, want, rtol):
     assert np.abs(got - want).max() <= rtol * max(np.abs(want).max(), 1e-300)
 
 
-@pytest.mark.parametrize("attempts", [1, 3])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
-def test_plain_versions_match_pallas_interpret(dtype, attempts):
-    interior, reduced, n, K_ii, K_ir, K_rr, rhs = problem(0, dtype)
+@pytest.mark.parametrize(
+    "dtype, attempts, nb, ni, nr",
+    [(np.float32, 1, NB, NI, NR), (np.float32, 3, NB, NI, NR), (np.float64, 1, NB, NI, NR),
+     (np.float64, 3, NB, NI, NR), (np.float64, 1, 2, 20, 70)],
+    ids=["f32-1", "f32-3", "f64-1", "f64-3", "f64-1-ni24_nr72"],
+)
+def test_plain_versions_match_pallas_interpret(dtype, attempts, nb, ni, nr):
+    """(2, 20, 70) pads to (24, 72): a reduced block wider than 64, as the
+    15x8 LGL orbit transfer makes it (one attempt only: the interpreter
+    takes about a minute at that width)."""
+    interior, reduced, n, K_ii, K_ir, K_rr, rhs = problem(0, dtype, nb, ni, nr)
     kw = dict(pivot_rtol=PIVOT_RTOL, delta_w_floor=FLOOR, attempts=attempts)
     ref = _make_pallas_core(interior, reduced, n, interpret=True, **kw)
     port = cuda_kkt.make_core(interior, reduced, n, **kw)
-    assert (port.ni_p, port.nr_p) == (ref.ni_p, ref.nr_p) == (8, 8)
+    pads = -(-ni // 8) * 8, -(-nr // 8) * 8
+    assert (port.ni_p, port.nr_p) == (ref.ni_p, ref.nr_p) == pads
 
     Kt_ref = ref.pad_move(*(jnp.asarray(a) for a in (K_ii, K_ir, K_rr)))
     Kt = port.pad_move(*(torch.as_tensor(a) for a in (K_ii, K_ir, K_rr)))
@@ -150,6 +165,81 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cuda_kkt._check("K_ii", torch.zeros(3, 2).T, (2, 3), torch.float32)
 
 
+def test_plain_versions_match_block_core_at_the_radau_orbit_width():
+    """At (nb, ni, nr) = (2, 37, 126), padded to (40, 128) as the 40x10
+    Radau orbit transfer pads them, the plain factor and applies solve the
+    block-arrow system the reference's block core solves (LAPACK Cholesky
+    on the same blocks), lane by lane, in float64 with one attempt: both
+    reject lane 2, whose interior block is indefinite. rtol 1e-10: two
+    factorizations of well-conditioned blocks, summed in other orders."""
+    nb, ni, nr = 2, 37, 126
+    interior, reduced, n, K_ii, K_ir, K_rr, rhs = problem(5, np.float64, nb, ni, nr)
+    port = cuda_kkt.make_core(interior, reduced, n, pivot_rtol=PIVOT_RTOL)
+    assert (port.ni_p, port.nr_p) == (40, 128)
+    Kt = port.pad_move(*(torch.as_tensor(a) for a in (K_ii, K_ir, K_rr)))
+    fac, _, _, _, _, ok = port.factor(*Kt, torch.zeros(Kt[0].shape[-1], dtype=torch.float64))
+    x = port.apply(fac, torch.as_tensor(rhs)).numpy()
+    r_factor, r_apply = ref_block_core(interior, reduced, n)
+    facs, pmin, pmax = jax.vmap(r_factor)(*(jnp.asarray(a) for a in (K_ii, K_ir, K_rr)))
+    x_r = np.asarray(jax.vmap(r_apply)(facs, jnp.asarray(rhs)))
+    ok_r = np.isfinite(pmin) & np.isfinite(pmax) & (np.asarray(pmin) > PIVOT_RTOL * np.asarray(pmax))
+    np.testing.assert_array_equal(ok.numpy()[:B], ok_r)
+    assert list(ok_r) == [True, True, False, True, True]
+    _close(x[ok_r], x_r[ok_r], 1e-10)
+    dense = np.zeros((B, n, n))
+    for b in range(nb):
+        idx = interior[b]
+        dense[:, idx[:, None], idx[None, :]] = K_ii[:, b]
+        dense[:, idx[:, None], reduced[None, :]] = K_ir[:, b]
+        dense[:, reduced[:, None], idx[None, :]] = np.swapaxes(K_ir[:, b], -1, -2)
+    dense[:, reduced[:, None], reduced[None, :]] = K_rr
+    _close(np.einsum("bij,bj->bi", dense, x)[ok_r], rhs[ok_r], 1e-10)
+
+
+def _tree_acc(terms, levels):
+    """The CUDA source's TreeAcc in Python: a binary counter of partial
+    sums (level l holds 2^l terms), pushed one term at a time and folded
+    from the lowest level up."""
+    st, n = [None] * levels, 0
+    for p in terms:
+        carry, placed = p, False
+        for lv in range(levels):
+            if not placed:
+                if (n >> lv) & 1:
+                    carry = f"({st[lv]}+{carry})"
+                else:
+                    st[lv], placed = carry, True
+        assert placed, "more terms than the counter's levels hold"
+        n += 1
+    acc = None
+    for lv in range(levels):
+        if (n >> lv) & 1:
+            acc = st[lv] if acc is None else f"({st[lv]}+{acc})"
+    return acc
+
+
+def test_tree_acc_builds_the_tree_sum_order():
+    """The run-time bodies stream their dots through TreeAcc. Its levels
+    hold every length the kernels sum (a dot of a 128-wide block has at
+    most 127 terms), and every such length gives exactly the
+    parenthesization of ``_tree_sum``, checked on symbols."""
+    levels = int(re.search(r"kLevels = (\d+);", _build.SOURCE.read_text()).group(1))
+    assert 2**levels - 1 >= cuda_kkt.MAX_REDUCED - 1
+    for n in range(1, 2**levels):
+        terms = [_Sym(f"t{i}") for i in range(n)]
+        assert _tree_acc([t.s for t in terms], levels) == _tree_sum(terms).s, n
+
+
+class _Sym:
+    """A term whose sum records its parenthesization."""
+
+    def __init__(self, s):
+        self.s = s
+
+    def __add__(self, other):
+        return _Sym(f"({self.s}+{other.s})")
+
+
 def test_lane_bytes_match_the_hand_count():
     """Bytes per lane at the LQR bench shapes (float32, nb=10, ni_p=16,
     nr_p=32), counted by hand from each kernel's inputs and outputs: the
@@ -162,37 +252,90 @@ def test_lane_bytes_match_the_hand_count():
     assert cost["bytes"] == 70_464 * 16384 and cost["bound_by"] == "bytes"
     assert cost["bound_ms"] == pytest.approx(70_464 * 16384 / 3.35e12 * 1e3)
     more = cuda_kkt.kernel_cost("factor", 10, 16, 32, 16384, torch.float32, chol_retries=100)
-    assert more["ops"] - cost["ops"] == 100 * (16**3 + 7 * 16**2 + 4 * 16)
+    assert more["ops"] - cost["ops"] == 100 * _chol_ops_by_hand(16)
+
+
+def _chol_ops_by_hand(n):
+    """One equilibrated Cholesky, operation by operation: sc (3 per row),
+    then per entry on or below the diagonal the scaled entry (3), its dot
+    over the j columns before it (j products, j - 1 adds, one subtract),
+    and the division by the pivot (on the diagonal, the sqrt)."""
+    ops = 3 * n
+    for i in range(n):
+        for j in range(i + 1):
+            ops += 3 + (2 * j if j else 0) + 1
+    return ops
+
+
+def test_factor_lane_ops_match_the_hand_count():
+    """The factor's operations per lane at the 40x10 Radau orbit's padded
+    shape (nb=40, ni_p=40, nr_p=128), counted by hand: per block a Cholesky,
+    the forward and backward solves of the nr_p columns of K_ir (t and
+    X_ir, each with its scaling by sc), and the lower half of S -= t^T t, which is all the reduced
+    Cholesky reads; then the reduced block's shift and scale and its
+    Cholesky. The bound is the bytes' at the gate batch in both types."""
+    nb, ni_p, nr_p = 40, 40, 128
+    # one column of one solve: sc times the entry, then dot, subtract and divide per row
+    solve = ni_p + sum(2 * k + 1 for k in range(ni_p))
+    schur = sum(2 * ni_p for r in range(nr_p) for c in range(r + 1))
+    ops = nb * (_chol_ops_by_hand(ni_p) + 2 * nr_p * solve + schur)
+    ops += 2 * nr_p**2 + _chol_ops_by_hand(nr_p)
+    assert cuda_kkt.lane_ops("factor", nb, ni_p, nr_p) == ops
+    for dtype, ms in ((torch.float32, 0.6996), (torch.float64, 1.3991)):
+        cost = cuda_kkt.kernel_cost("factor", nb, ni_p, nr_p, 1024, dtype)
+        assert cost["bound_by"] == "bytes" and cost["bound_ms"] == pytest.approx(ms, abs=1e-4)
 
 
 @pytest.mark.parametrize(
     "ni_p, nr_p, dtype",
     [
         (72, 16, torch.float32),
-        (16, 72, torch.float64),
+        (16, 136, torch.float64),
         (72, 72, torch.float32),
         (128, 8, torch.float64),
-        (8, 80, torch.float32),
+        (8, 256, torch.float32),
+        (72, 128, torch.float64),
     ],
 )
 def test_wrappers_raise_for_shapes_the_kernels_do_not_take(ni_p, nr_p, dtype, monkeypatch):
-    """Padded blocks wider than 64 raise before any launch, in all three
-    wrappers. The tensors are meta tensors taken as card tensors: the check
-    needs no card and no data."""
+    """Padded interior blocks wider than 64 and reduced blocks wider than
+    128 raise before any launch, in all three wrappers. The tensors are
+    meta tensors taken as card tensors: the check needs no card and no
+    data."""
     monkeypatch.setattr(cuda_kkt, "_on_cpu", lambda *ts: False)
     nb, BT = 2, 128
     meta = lambda *s: torch.empty(s + (BT,), dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match="wider than 64"):
+    wide = "interior blocks wider than 64" if ni_p > 64 else "reduced blocks wider than 128"
+    with pytest.raises(ValueError, match=wide):
         cuda_kkt.factor_blocks(
             meta(nb, ni_p, ni_p), meta(nb, ni_p, nr_p), meta(nr_p, nr_p), meta(),
             ni_real=ni_p, nr_real=nr_p, pivot_rtol=1e-3, delta_floor=0.1, attempts=1,
         )
-    with pytest.raises(ValueError, match="wider than 64"):
+    with pytest.raises(ValueError, match=wide):
         cuda_kkt.apply_down(meta(nb, ni_p, ni_p), meta(nb, ni_p), meta(nb, ni_p, nr_p),
                             meta(nb, ni_p), meta(nr_p))
-    with pytest.raises(ValueError, match="wider than 64"):
+    with pytest.raises(ValueError, match=wide):
         cuda_kkt.apply_up(meta(nr_p, nr_p), meta(nr_p), meta(nr_p), meta(nb, ni_p, nr_p),
                           meta(nb, ni_p))
+
+
+def test_factor_refuses_the_one_shape_whose_lane_does_not_fit(monkeypatch):
+    """At (64, 128) one float64 factor lane takes 232,480 bytes of shared
+    memory, 32 more than a CTA may hold: the factor wrapper raises before
+    any launch (the C launcher returns cudaErrorInvalidValue there too). In
+    float32 the shape takes one lane per CTA, and the applies take it in
+    both types (they keep no lane tile)."""
+    monkeypatch.setattr(cuda_kkt, "_on_cpu", lambda *ts: False)
+    nb, BT, ni_p, nr_p = 2, 128, 64, 128
+    assert cuda_kkt.factor_lane_bytes(ni_p, nr_p, torch.float64) == 232_480
+    assert cuda_kkt.factor_tile_lanes(ni_p, nr_p, torch.float64) == 0
+    assert cuda_kkt.factor_tile_lanes(ni_p, nr_p, torch.float32) == 1
+    meta = lambda *s: torch.empty(s + (BT,), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="232480 bytes of shared memory"):
+        cuda_kkt.factor_blocks(
+            meta(nb, ni_p, ni_p), meta(nb, ni_p, nr_p), meta(nr_p, nr_p), meta(),
+            ni_real=ni_p, nr_real=nr_p, pivot_rtol=1e-3, delta_floor=0.1, attempts=1,
+        )
 
 
 def test_apply_up_lane_bytes_and_ops_match_the_hand_count():
@@ -243,8 +386,12 @@ def test_apply_down_lane_bytes_match_the_hand_count():
         (16, 32, torch.float64, 4),
         (32, 64, torch.float32, 7),  # 29,456 bytes a lane: 8 would take 235 KB
         (32, 64, torch.float64, 3),
-        (64, 64, torch.float32, 4),  # the widest: 50,192 bytes a lane
+        (64, 64, torch.float32, 4),  # 50,192 bytes a lane
         (64, 64, torch.float64, 2),
+        (40, 128, torch.float32, 2),  # the 40x10 Radau orbit: 93,776 bytes a lane
+        (40, 128, torch.float64, 1),  # 187,552 bytes a lane
+        (24, 72, torch.float32, 7),  # the 15x8 LGL orbit
+        (64, 128, torch.float32, 1),  # the widest a float32 lane takes
     ],
 )
 def test_factor_tile_shrinks_to_fit_shared_memory(ni_p, nr_p, dtype, lanes):
@@ -317,18 +464,18 @@ def _lane_rel_err(got, want):
 # (nb, ni, nr, lanes) of the ragged card cases
 RAGGED_CASES = [(3, 20, 37, 1001), (5, 16, 25, 333), (4, 5, 7, 77), (3, 30, 60, 45),
                 (3, 37, 45, 101), (3, 64, 64, 19), (40, 5, 7, 129), (4, 12, 13, 65),
-                (3, 9, 21, 97)]
+                (3, 9, 21, 97), (40, 37, 126, 257), (12, 25, 60, 1001), (15, 24, 67, 333)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_apply_up_launch_takes_every_reduced_size(cuda, dtype):
-    """Every reduced size up to 64 has an apply_up body (a built one for
+    """Every reduced size up to 128 has an apply_up body (a built one for
     8/16/24/32, the run-time one otherwise) whose CTA fits in shared memory,
     and every interior row count its warps (one per row, up to 8); the
     launcher refuses what it does not take. Read from the launcher itself
     (``bak_apply_up_launch_*``), which launches exactly this."""
-    for nr_p in range(1, cuda_kkt.MAX_BLOCK + 1):
+    for nr_p in range(1, cuda_kkt.MAX_REDUCED + 1):
         launch = cuda_kkt.apply_up_launch(10, 16, nr_p, 1001, dtype)
         assert launch["body"] == (nr_p if nr_p in (8, 16, 24, 32) else 0)
         assert 0 < launch["smem"] <= cuda_kkt.SMEM_MAX
@@ -338,7 +485,7 @@ def test_apply_up_launch_takes_every_reduced_size(cuda, dtype):
         assert cuda_kkt.apply_up_launch(rows, 1, 8, 1, dtype)["warps"] == min(rows, 8)
     assert cuda_kkt.apply_up_launch(40, 5, 7, 129, dtype)["warps"] == 8
     for nb, ni_p, nr_p, lanes in [(0, 8, 8, 32), (1, 0, 8, 32), (1, 65, 8, 32), (1, 8, 0, 32),
-                                  (1, 8, 65, 32), (1, 8, 8, 0)]:
+                                  (1, 8, 129, 32), (1, 8, 8, 0)]:
         with pytest.raises(ValueError, match="no launch"):
             cuda_kkt.apply_up_launch(nb, ni_p, nr_p, lanes, dtype)
 
@@ -361,15 +508,18 @@ def test_card_cases_run_every_apply_up_body(cuda):
 @pytest.mark.parametrize(
     "nb, ni, nr, lanes", RAGGED_CASES,
     ids=["ni24_nr40", "ni16_nr32", "ni8_nr8", "ni32_nr64", "ni40_nr48", "ni64_nr64",
-         "nb40_ni8_nr8", "ni16_nr16", "ni16_nr24"],
+         "nb40_ni8_nr8", "ni16_nr16", "ni16_nr24", "orbit40x10_ni40_nr128", "goddard_ni32_nr64",
+         "orbit15x8_ni24_nr72"],
 )
 def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, attempts, nb, ni,
                                                                   nr, lanes):
     """The three kernels at every built interior size (8, 16, 24, 32), at
     run-time sizes (40, 64), at reduced tiles of lanes (ni_p=32 or 64 with
-    nr_p=64), at every apply_up body (reduced sizes 8, 16, 24, 32 and the
-    run-time 40, 48, 64), with 40 blocks (320 interior rows over the 8
-    warps of an apply_up CTA) and at lane counts that are multiples of
+    nr_p=64, ni_p=40 with nr_p=128), at every apply_up body (reduced sizes
+    8, 16, 24, 32 and the run-time 40, 48, 64, 72, 128), at the padded
+    shapes of the repo's Radau and multi-phase problems (the 40x10 Radau
+    orbit transfer, the 3-phase Goddard rocket, the 15x8 LGL orbit), with
+    40 blocks (320 interior rows over the 8 warps of an apply_up CTA) and at lane counts that are multiples of
     neither the factor's lane tile nor 32 nor 128: lanes are sliced after
     pad_move, so the kernels see the ragged count. Every third lane's block
     1 has one eigenvalue at -0.5 (the retry ladder accepts it at 1.0) and

@@ -218,7 +218,6 @@ def test_solve_turns_tf32_off_and_restores_the_callers_flags():
 
 
 _UNPORTED = {
-    "mehrotra": dict(mu_strategy="mehrotra"),
     "adaptive": dict(mu_strategy="adaptive"),
     "dense": dict(kkt_solver="dense"),
     "structured": dict(kkt_solver="structured"),
@@ -234,6 +233,23 @@ def test_unported_options_raise(name, monkeypatch):
         monkeypatch.setenv(name, "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts, device="cpu")
+
+
+@pytest.mark.parametrize("kkt_solver", ["block", "pallas"])
+def test_mehrotra_runs_and_matches_reference(kkt_solver):
+    """``mu_strategy="mehrotra"`` is ported: on the 4x5 LQR, on both KKT
+    paths, the port takes the reference's iterations to the same float64
+    objective (within 1e-8)."""
+    ref_sys, ref_phase = build_lqr(ref_lobatto, 4, 5)
+    _, want = ref_ipm.solve(ref_sys, [ref_lobatto.constant_guess(ref_phase, 0), [0.0]],
+                            RefOptions(mu_strategy="mehrotra", kkt_solver=kkt_solver))
+    system, phase = build_lqr(port_lobatto, 4, 5)
+    _, info = ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]],
+                        IPOptions(mu_strategy="mehrotra", kkt_solver=kkt_solver), device="cpu",
+                        dtype=torch.float64)
+    assert info["status"] == want["status"] == 0
+    assert info["iterations"] == want["iterations"]
+    assert abs(info["obj_val"] - want["obj_val"]) <= 1e-8
 
 
 def test_interop_rejects_unknown_option_fields():

@@ -27,6 +27,7 @@ import pockit_tpu_torch.lobatto as port_lobatto
 import pockit_tpu_torch.numerics as port_num
 from pockit_tpu_torch import interop
 from pockit_tpu_torch.optimizer import ipm
+from pockit_tpu_torch.transcription.error import make_error_stats
 
 from test_torch_frontend import build_lqr
 
@@ -143,7 +144,7 @@ class _StopAtDevice(torch.overrides.TorchFunctionMode):
 @pytest.mark.parametrize("entry", ["solve", "solve_batch", "solve_batch_drained",
                                    "default_runtime", "inputs_from_numpy", "objective",
                                    "gradient", "constraints", "jacobian", "hessian",
-                                   "nlp_callbacks"])
+                                   "nlp_callbacks", "error_stats"])
 def test_entry_points_default_to_the_card(entry):
     system, phase = build_lqr(port_lobatto, 4, 5)
     guess = [port_lobatto.constant_guess(phase, 0), [0.0]]
@@ -161,6 +162,8 @@ def test_entry_points_default_to_the_card(entry):
         "jacobian": lambda: c.jacobian(z0[0]),
         "hessian": lambda: c.hessian(z0[0], np.zeros(c.m), 1.0),
         "nlp_callbacks": lambda: system.hessian(z0[0], np.zeros(c.m), 1.0),
+        "error_stats": lambda: make_error_stats(system)(
+            z0, (np.tile(c.phases[0].fixed_vals, (3, 1)),), (1e-8, 1e-8, 1e-3)),
     }[entry]
     watch = _StopAtDevice()
     with watch, pytest.raises(LookupError):
