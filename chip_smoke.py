@@ -60,6 +60,21 @@ exits non-zero):
    are finite, explicit ``kkt_solver="pallas"`` raises before any launch;
    and the chooser says "pallas" at the padded shapes of phases 4-6.
 
+9. continuation and MPC, on the LQR 10x10 LGL through the kernels (run
+   after phase 4, before the pool of phases 5-8): a. ``examples/mpc_sweep.py``
+   (BASELINE config 5) at B=8192, a cold solve and one warm replan, in
+   float32 at the example's options (reported) and float64 (gated:
+   converged >= 0.99, objectives within 1e-6 of J1 x0^2); b.
+   ``homotopy_sweep`` at B=8192 in float64, four stages to x(0) targets ~
+   U(3, 6), uninterrupted, then killed after stage 1 and resumed (only
+   stages 2-3 solve; objectives within 1e-6 of J1 target^2 and 1e-9 of the
+   uninterrupted sweep); c. the IPOPT shim (J1 within 1e-6 through the
+   kernels; ``adaptive`` takes Mehrotra); d. the scipy adapter over the
+   dense callbacks on the card (J1 within 1e-6); e. ``live_metrics`` at
+   B=256, one ``[ipm]`` line per IPM trip; f. ``profile_trace`` around one
+   float32 replan: the device's busy seconds over the replan's wall
+   (printed).
+
 The runs of phases 5-8 go four at a time, each in a process of its own
 with its own launch counts: their IPM loops are bound by the host.
 
@@ -77,7 +92,8 @@ operations over the card's peak for the type (``cuda_kkt.kernel_cost``,
 from this run's shapes and retries); under ``"gates"`` the same at each
 of phases 5 and 6's shapes and types, with that phase's launches per
 batch; under ``"sweep"`` the same at each padded shape of each of phase
-7's three sweeps, with its launches in that sweep. The last line is ``{"ok": true,
+7's three sweeps, with its launches in that sweep; under ``"mpc"`` its launches per cold
+solve and per replan of phase 9a in each type. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -98,21 +114,6 @@ def nvidia_smi():
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
-
-
-def build_lqr(lobatto, mesh=10, num_point=10):
-    system = lobatto.System(["x_f"])
-    (x_f,) = system.s
-    phase = system.new_phase(["x"], ["u"])
-    (x,) = phase.x
-    (u,) = phase.u
-    phase.set_dynamics([-x + u])
-    phase.set_integral([x**2 + 0.1 * u**2])
-    phase.set_boundary_condition([1], [x_f], 0, 1)
-    phase.set_discretization(mesh, num_point)
-    system.set_phase([phase])
-    system.set_objective(phase.I[0] + x_f**2 / 2)
-    return system, phase
 
 
 def retry_block(nb):
@@ -759,8 +760,8 @@ def f1_run(device="cuda"):
     Returns the figures."""
     import torch
 
-    import pockit_tpu_torch.lobatto as lobatto
     import pockit_tpu_torch.radau as radau
+    from pockit_tpu_torch.examples.lqr import build as lqr_build
     from pockit_tpu_torch.optimizer import ipm
     from pockit_tpu_torch.optimizer._common import preprocess
     from pockit_tpu_torch.solver import IPOptions, cuda_kkt
@@ -789,7 +790,7 @@ def f1_run(device="cuda"):
     status = res.status.cpu().numpy()
     r_f = float(res.z[0, system.l_s].item())
     others = {}
-    for name, (sys_k, _) in {"phase 4 lqr": (build_lqr(lobatto)[0], None),
+    for name, (sys_k, _) in {"phase 4 lqr": lqr_build(),
                              "phase 5 orbit": build_orbit(radau),
                              "phase 6 goddard": build_goddard(radau)}.items():
         lay = structured_layout(sys_k)
@@ -873,6 +874,333 @@ def phase_pool(B, device="cuda", workers=4):
     return gates, {key[1]: rec for key, rec in done.items() if key[0] == "sweep"}, done[("f1",)]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: continuation and MPC (BASELINE config 5), the IPOPT shim, the scipy
+# adapter and the ops hooks, on the LQR 10x10 LGL through the kernels
+# ---------------------------------------------------------------------------
+
+MPC_B = 8192
+LIVE_B = 256
+LQR_PADDED = (10, 16, 32)
+
+
+class Killed(RuntimeError):
+    """Raised by an ``on_stage`` callback to kill a sweep after a stage."""
+
+
+def lqr_launches(what):
+    """This run's kernel launches; raises unless all three launched, and only
+    at the LQR's padded shape."""
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    launches = dict(cuda_kkt.LAUNCHES)
+    shapes = {k: sorted(v) for k, v in cuda_kkt.LAUNCH_SHAPES.items()}
+    if min(launches.values()) == 0 or any(v != [LQR_PADDED] for v in shapes.values()):
+        raise AssertionError(f"phase 9 {what}: the kernels did not all launch at {LQR_PADDED}: "
+                             f"{launches} {shapes}")
+    return launches
+
+
+def lqr_problem():
+    """The example's LQR (``pockit_tpu_torch.examples.lqr``) and its flat
+    constant guess."""
+    from pockit_tpu_torch.examples.lqr import build
+    from pockit_tpu_torch.lobatto import constant_guess
+    from pockit_tpu_torch.optimizer._common import preprocess
+
+    system, phase = build()
+    guess = [constant_guess(phase, 0), [0.0]]
+    return system, guess, preprocess(system, guess)[0]
+
+
+def mpc_run(dtype, B=MPC_B, device="cuda"):
+    """9a: ``examples/mpc_sweep.py`` at B lanes (x(0) ~ U(0.5, 1.5) from
+    ``default_rng(0)``, the replan's drift N(0, 0.02)): a cold
+    ``solve_batch`` from the constant guess, then one warm replan from the
+    cold ``res.z`` on the device, at the example's options for ``dtype``.
+    Gated in float64 (converged >= 0.99, each converged lane's objective
+    within 1e-6 relative of J1 x0^2); float32 is reported. Returns the
+    figures and a function that runs the replan again."""
+    import torch
+
+    from pockit_tpu_torch.examples import mpc_sweep
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    system, _, x0 = lqr_problem()
+    bc, bc2 = mpc_sweep.draws(system.compiled.phases[0].fixed_vals, B)
+    opts = mpc_sweep.options(dtype)
+    t = lambda a: torch.as_tensor(a, device=device, dtype=dtype)
+    z, runs = t(np.tile(x0, (B, 1))), {}
+    torch.cuda.reset_peak_memory_stats()
+    for run, b in (("cold", bc), ("replan", bc2)):
+        cuda_kkt.reset_launches()
+        t0 = time.perf_counter()
+        res = ipm.solve_batch(system, z, bc_overrides=(t(b),), optimizer_options=opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        status = res.status.cpu().numpy()
+        want = J1 * b[:, 0] ** 2
+        rel = np.abs(res.obj.double().cpu().numpy() - want) / want
+        ok = status == 0
+        runs[run] = dict(wall_s=wall, converged_frac=float(ok.mean()),
+                         mean_iters=float(res.iterations.double().mean()),
+                         max_rel_obj_err_converged=float(rel[ok].max(initial=0.0)),
+                         finite=bool(torch.isfinite(res.z).all()),
+                         launches=lqr_launches(f"mpc {run}"))
+        if run == "cold":
+            z_cold = z = res.z
+    name = str(dtype).replace("torch.", "")
+    rec = dict(dtype=name, batch=B, options="IPOptions(tol=2e-5, max_iter=60)" if opts else
+               "defaults (tol 1e-8)", cold=runs["cold"], replan=runs["replan"],
+               replans_per_s=B / runs["replan"]["wall_s"],
+               max_memory_allocated=int(torch.cuda.max_memory_allocated()))
+    print(f"phase 9a mpc {name}: " + json.dumps(rec), flush=True)
+    for run, r in runs.items():
+        if not r["finite"]:
+            raise AssertionError(f"mpc {name} {run}: non-finite solutions")
+        if dtype == torch.float64 and (r["converged_frac"] < 0.99
+                                       or r["max_rel_obj_err_converged"] > 1e-6):
+            raise AssertionError(f"mpc float64 {run}: converged {r['converged_frac']}, "
+                                 f"objective error {r['max_rel_obj_err_converged']:.3e}")
+    replan = lambda: ipm.solve_batch(system, z_cold, bc_overrides=(t(bc2),),
+                                     optimizer_options=opts)
+    return rec, replan
+
+
+def homotopy_run(B=MPC_B, device="cuda"):
+    """9b: ``homotopy_sweep`` at B lanes in float64, four stages ramping x(0)
+    from 1 to targets ~ U(3, 6) (``default_rng(1)``) as the JAX package's
+    test fixture, with a checkpoint directory: an uninterrupted sweep, one
+    killed after stage 1, and a plain re-run that must solve only stages 2
+    and 3. Gates: every stage's lanes converged, final objectives within 1e-6
+    relative of J1 target^2 and the resumed sweep's within 1e-9 of the
+    uninterrupted sweep's. Each stage's wall (solve and commit) and mean
+    iterations; each stage's checkpoint seconds: its commit (host copies and
+    writes, the warm batch included) timed again into another directory."""
+    import tempfile
+
+    import torch
+
+    from pockit_tpu_torch.parallel import homotopy, homotopy_sweep
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    system, _, x0 = lqr_problem()
+    targets = np.random.default_rng(1).uniform(3.0, 6.0, B)
+    base = np.tile(system.compiled.phases[0].fixed_vals, (B, 1))
+    stages = []
+    for lam in np.linspace(0.25, 1.0, 4):
+        bc = base.copy()
+        bc[:, 0] = 1.0 + lam * (targets - 1.0)
+        stages.append((bc,))
+    guess = np.tile(x0, (B, 1))
+    kw = dict(device=device, dtype=torch.float64)
+    marks = []
+    stage_marks = lambda k, res: marks.append((time.perf_counter(),
+                                               float(res.iterations.double().mean())))
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_kkt.reset_launches()
+        t0 = time.perf_counter()
+        full = homotopy_sweep(system, guess, stages, on_stage=stage_marks,
+                              checkpoint_path=f"{tmp}/full", **kw)
+        wall = time.perf_counter() - t0
+        launches = lqr_launches("homotopy")
+        commit_s, digest = [], homotopy._sweep_digest(guess, stages)
+        for k, res in enumerate(full):
+            t1 = time.perf_counter()
+            homotopy._commit_stage(tmp, digest, k, res, k)
+            commit_s.append(time.perf_counter() - t1)
+
+        def die_after_1(k, res):
+            if k == 1:
+                raise Killed
+
+        try:
+            homotopy_sweep(system, guess, stages, on_stage=die_after_1,
+                           checkpoint_path=f"{tmp}/killed", **kw)
+        except Killed:
+            pass
+        else:
+            raise AssertionError("homotopy: the killed sweep ran to its end")
+        solved = []
+        t1 = time.perf_counter()
+        resumed = homotopy_sweep(system, guess, stages,
+                                 on_stage=lambda k, res: solved.append(k),
+                                 checkpoint_path=f"{tmp}/killed", **kw)
+        resume_wall = time.perf_counter() - t1
+    starts = [t0] + [m[0] for m in marks[:-1]]
+    per_stage = [dict(stage=k, wall_s=t_k - t_s, mean_iters=it, checkpoint_s=c)
+                 for k, ((t_k, it), t_s, c) in enumerate(zip(marks, starts, commit_s))]
+    obj = full[-1].obj.cpu().numpy()
+    obj_resumed = resumed[-1].obj.cpu().numpy()
+    rel = float(np.max(np.abs(obj - J1 * targets**2) / (J1 * targets**2)))
+    rel_resumed = float(np.max(np.abs(obj_resumed - obj) / obj))
+    statuses = [int((r.status != 0).sum()) for r in full]
+    rec = dict(batch=B, dtype="float64", stages=per_stage, wall_s=wall, stages_per_s=4 / wall,
+               unconverged_per_stage=statuses, max_rel_obj_err=rel, resumed_solved=solved,
+               resume_wall_s=resume_wall, max_rel_err_resumed_vs_uninterrupted=rel_resumed,
+               launches=launches)
+    print("phase 9b homotopy: " + json.dumps(rec), flush=True)
+    if max(statuses) or int((resumed[-1].status != 0).sum()) or solved != [2, 3] \
+            or rel > 1e-6 or rel_resumed > 1e-9:
+        raise AssertionError("homotopy: a gate failed (every lane status 0, resumed stages "
+                             "[2, 3], objectives within 1e-6 of J1 target^2 and 1e-9 of the "
+                             "uninterrupted sweep)")
+    return rec
+
+
+def adapters_run(device="cuda"):
+    """9c-9d: the IPOPT shim (one float64 LQR solve through the kernels,
+    then ``mu_strategy="adaptive"``, which must take Mehrotra) and the scipy
+    adapter (``trust-constr`` over the dense callbacks on the card),
+    objectives within 1e-6 of J1."""
+    import torch
+
+    from pockit_tpu_torch.optimizer import ipopt, scipy
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    system, guess, _ = lqr_problem()
+    kw = dict(device=device, dtype=torch.float64)
+    cuda_kkt.reset_launches()
+    t0 = time.perf_counter()
+    _, info = ipopt.solve(system, guess, {"tol": 1e-8, "max_iter": 80, "print_level": 0,
+                                          "sb": "yes"}, **kw)
+    wall = time.perf_counter() - t0
+    launches = lqr_launches("ipopt")
+    _, info_ad = ipopt.solve(system, guess, {"mu_strategy": "adaptive"}, **kw)
+    strategies = sorted(o.mu_strategy for o in system.compiled._ipm_cache)
+    rec = dict(obj=info["obj_val"], err=abs(info["obj_val"] - J1), kkt_solver=info["kkt_solver"],
+               iterations=info["iterations"], wall_s=wall, launches=launches,
+               adaptive=dict(obj=info_ad["obj_val"], err=abs(info_ad["obj_val"] - J1),
+                             kkt_solver=info_ad["kkt_solver"], iterations=info_ad["iterations"],
+                             solvers_built=strategies))
+    print("phase 9c ipopt shim: " + json.dumps(rec), flush=True)
+    if rec["err"] > 1e-6 or rec["kkt_solver"] != "pallas" or rec["adaptive"]["err"] > 1e-6 \
+            or info_ad["kkt_solver"] != "pallas" or strategies != ["mehrotra", "monotone"]:
+        raise AssertionError("ipopt shim: objective off J1, a path other than the kernels, or "
+                             "'adaptive' did not take Mehrotra")
+    system, guess, _ = lqr_problem()
+    t0 = time.perf_counter()
+    _, res = scipy.solve(system, guess, {"maxiter": 500, "gtol": 1e-10}, device=device)
+    wall = time.perf_counter() - t0
+    rec_sp = dict(fun=float(res.fun), err=abs(float(res.fun) - J1), status=int(res.status),
+                  nit=int(res.nit), wall_s=wall)
+    print("phase 9d scipy adapter: " + json.dumps(rec_sp), flush=True)
+    if rec_sp["err"] > 1e-6:
+        raise AssertionError(f"scipy adapter: objective {res.fun} more than 1e-6 off J1")
+    return rec, rec_sp
+
+
+def live_run(device="cuda"):
+    """9e: ``live_metrics`` on a B=256 float32 solve at the example's options:
+    the captured stdout must hold one ``[ipm]`` line per IPM trip, the
+    batched aggregate, with ``it~`` counting the trips."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from pockit_tpu_torch.examples import mpc_sweep
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    system, _, x0 = lqr_problem()
+    bc, _ = mpc_sweep.draws(system.compiled.phases[0].fixed_vals, LIVE_B)
+    opts = dataclasses.replace(mpc_sweep.options(torch.float32), live_metrics=True)
+    t = lambda a: torch.as_tensor(a, device=device, dtype=torch.float32)
+    out = io.StringIO()
+    cuda_kkt.reset_launches()
+    with contextlib.redirect_stdout(out):
+        res = ipm.solve_batch(system, t(np.tile(x0, (LIVE_B, 1))), bc_overrides=(t(bc),),
+                              optimizer_options=opts)
+    launches = lqr_launches("live_metrics")
+    lines = out.getvalue().splitlines()
+    its = [int(line.split("it~")[1].split()[0]) if line.startswith("[ipm] it~") else -1
+           for line in lines]
+    top = int(res.iterations.max())
+    rec = dict(batch=LIVE_B, lines=len(lines), max_iterations=top,
+               converged_frac=float((res.status == 0).double().mean()), launches=launches,
+               first=lines[:1], last=lines[-1:])
+    print("phase 9e live_metrics: " + json.dumps(rec), flush=True)
+    if its != list(range(len(lines))) or not top <= len(lines) <= top + 1:
+        raise AssertionError("live_metrics: not one [ipm] line per IPM trip")
+    return rec
+
+
+def device_busy(trace_path):
+    """The device's work in a ``profile_trace`` file: the union of its
+    kernel, copy and set intervals (busy seconds), the kernels' summed
+    seconds, the port's three kernels' seconds and launches, and the five
+    kernels that take most of the time."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"], e["cat"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy_us, end = 0.0, -np.inf
+    for start, stop, _, _ in dev:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name, ours = {}, {}
+    for start, stop, name, cat in dev:
+        if cat == "kernel":
+            by_name[name] = by_name.get(name, 0.0) + (stop - start)
+            for k in ("factor", "apply_down", "apply_up"):
+                if f"{k}_kernel" in name:
+                    s, n = ours.get(k, (0.0, 0))
+                    ours[k] = (s + (stop - start) / 1e6, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_events=len(dev), kernels=sum(1 for d in dev if d[3] == "kernel"),
+                kernel_s=sum(by_name.values()) / 1e6, busy_s=busy_us / 1e6,
+                port_kernels={k: {"s": v[0], "launches": v[1]} for k, v in ours.items()},
+                top_kernels=[[name[:80], us / 1e6] for name, us in top])
+
+
+def profile_run(replan):
+    """9f: one warm replan of 9a timed alone, then again under
+    ``profile_trace``: the device's busy seconds (kernels, copies, sets;
+    the same work either way) over each wall. The profiler's host cost
+    stretches its own wall, so the unprofiled wall gives the replan's busy
+    share. Printed, not gated; with no device event in the trace, "not
+    measured"."""
+    import tempfile
+
+    import torch
+
+    from pockit_tpu_torch.utils import profile_trace
+
+    t0 = time.perf_counter()
+    replan()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profile_trace(tmp) as prof:
+            replan()
+            torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+        rec = dict(wall_s=wall, profiled_wall_s=wall_prof, **device_busy(prof.trace_path))
+    if rec["device_events"]:
+        rec.update(busy_share=rec["busy_s"] / wall, busy_share_profiled=rec["busy_s"] / wall_prof)
+    else:
+        rec["busy_share"] = "not measured (no device event in the trace)"
+    print("phase 9f profile of a replan: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_continuation(device="cuda"):
+    """Phase 9, parts a to f; returns their figures."""
+    import torch
+
+    mpc32, replan32 = mpc_run(torch.float32, device=device)
+    mpc64, _ = mpc_run(torch.float64, device=device)
+    out = dict(mpc={"float32": mpc32, "float64": mpc64}, homotopy=homotopy_run(device=device))
+    out["ipopt"], out["scipy"] = adapters_run(device)
+    out["live"] = live_run(device)
+    out["profile"] = profile_run(replan32)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed repetitions of phase 4")
@@ -907,6 +1235,7 @@ def main():
     print(smi, flush=True)
 
     import pockit_tpu_torch.lobatto as lobatto
+    from pockit_tpu_torch.examples.lqr import build as lqr_build
     from pockit_tpu_torch.optimizer import ipm
     from pockit_tpu_torch.optimizer._common import preprocess
     from pockit_tpu_torch.solver import IPOptions
@@ -943,7 +1272,7 @@ def main():
     t2 = time.perf_counter()
     seconds["2"] = t2 - started - seconds["0-1"]
 
-    system, phase = build_lqr(lobatto)
+    system, phase = lqr_build()
     x0, _ = preprocess(system, [lobatto.constant_guess(phase, 0), [0.0]])
     fixed = system.compiled.phases[0].fixed_vals
 
@@ -1035,6 +1364,12 @@ def main():
     t4 = time.perf_counter()
     seconds["4"] = t4 - t3
 
+    # -- phase 9: continuation and MPC, the adapters, the ops hooks -------------
+    cont = phase_continuation()
+    t9 = time.perf_counter()
+    seconds["9"] = t9 - t4
+    t4 = t9
+
     # -- phases 5 to 8: the gates, the refine sweep, F1 -------------------------
     torch.cuda.empty_cache()  # the runs' processes need the card's memory
     gates, sweeps, _ = phase_pool(args.gate_batch)
@@ -1082,6 +1417,18 @@ def main():
                 "plain_ms": g["times"][k][1], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "bytes": c["bytes"], "ops": c["ops"], "library_ms": None}
 
+    def at_mpc(k):
+        """Kernel ``k`` in phase 9a: its launches per cold solve and per
+        replan in each type, and in 9f's profiled float32 replan its device
+        ms per launch (from the trace) beside the bound of one launch."""
+        traced = cont["profile"].get("port_kernels", {}).get(k)
+        c = cuda_kkt.kernel_cost(k, *LQR_PADDED, MPC_B, torch.float32)
+        return {"shape": list(LQR_PADDED), "batch": MPC_B, **{
+            dt: {run: cont["mpc"][dt][run]["launches"][k] for run in ("cold", "replan")}
+            for dt in ("float32", "float64")},
+            "float32_replan_trace_ms": traced["s"] * 1e3 / traced["launches"] if traced else None,
+            "float32_bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": launches[k], "launches_per_batch": launches[k] / args.reps,
@@ -1091,7 +1438,8 @@ def main():
          "gates": {f"{gate}_{str(dt).replace('torch.', '')}": at_gate(k, gate, dt)
                    for gate in GATE_SHAPES for dt in (torch.float64, torch.float32)},
          "sweep": [at_sweep(k, run, padded) for run in ("f32", "f64", "bang_bang")
-                   for padded in sweeps[run]["kernels"]]}
+                   for padded in sweeps[run]["kernels"]],
+         "mpc": at_mpc(k)}
         for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

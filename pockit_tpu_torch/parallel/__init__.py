@@ -1,10 +1,13 @@
-"""Instance sweeps: batched hp-refinement over per-instance meshes.
+"""Instance sweeps on one device: batched hp-refinement over per-instance
+meshes (:func:`solve_refine_batch`) and homotopy continuation with durable
+checkpoints (:func:`homotopy_sweep`).
 
-The port of the part of ``pockit_tpu/parallel`` that runs on one device,
-:func:`solve_refine_batch`. Homotopy sweeps and the multi-device layers
-(``homotopy``, ``sharding``, ``distributed``) are not ported yet.
+The port of the part of ``pockit_tpu/parallel`` that runs on one device;
+the multi-device layers (``sharding``, ``distributed``) are not ported
+yet.
 """
 
+from pockit_tpu_torch.parallel.homotopy import homotopy_sweep
 from pockit_tpu_torch.parallel.refine_batch import SweepResult, solve_refine_batch
 
-__all__ = ["solve_refine_batch", "SweepResult"]
+__all__ = ["homotopy_sweep", "solve_refine_batch", "SweepResult"]

@@ -50,8 +50,18 @@ _FILTER_SIZE = 24
 # matrix-free CG
 _LS_INIT_DENSE_MAX_BYTES = 1 << 20
 
-# developer hooks of the reference, not ported
-_UNPORTED_ENV = ("POCKIT_DUMP_KKT", "POCKIT_IPM_DEBUG_TRACE")
+# developer hooks, read once at import as in the JAX package (a solver
+# takes the values current when it is built, and ``optimizer.ipm`` caches
+# built solvers per system and options):
+# POCKIT_IPM_DEBUG_TRACE=1 swaps the per-iteration trace row for
+# Newton-direction internals (see body())
+_DEBUG_TRACE = os.environ.get("POCKIT_IPM_DEBUG_TRACE", "").strip().lower() not in (
+    "", "0", "false", "off", "no",
+)
+# POCKIT_DUMP_KKT=/path.npz saves the first iteration's assembled
+# block-KKT inputs from the kernel path, for offline kernel replay
+# (``tools/replay_kkt.py`` reads the file)
+_DUMP_KKT = os.environ.get("POCKIT_DUMP_KKT", "").strip()
 
 
 class Bounds(NamedTuple):
@@ -109,6 +119,34 @@ class _State(NamedTuple):
     done: torch.Tensor
     status: torch.Tensor
     kkt: torch.Tensor
+
+
+def _emit_live_metrics(it, row, finished_prev):
+    """Host-side sink for ``IPOptions.live_metrics``, called once per IPM
+    trip with the lanes' iteration counters ``it (B,)``, trace rows ``row
+    (B, 6)`` and the lanes finished before the trip. One lane prints the
+    JAX package's scalar line; more print its batched aggregates over the
+    lanes still active."""
+    row = np.asarray(row)
+    it = np.asarray(it)
+    if row.shape[0] == 1:
+        kkt, mu, alpha, dw, theta, _ = row[0]
+        print(
+            f"[ipm] it={int(it[0]):3d} kkt={kkt:9.3e} mu={mu:8.2e} "
+            f"alpha={alpha:6.4f} delta_w={dw:8.2e} theta={theta:9.3e}"
+        )
+    else:
+        active = ~np.asarray(finished_prev)
+        n_act = int(active.sum())
+        if n_act == 0:
+            return
+        r = row[active]
+        print(
+            f"[ipm] it~{int(it.max()):3d} active={n_act:5d} "
+            f"kkt(max/med)={r[:, 0].max():9.3e}/{np.median(r[:, 0]):9.3e} "
+            f"mu(med)={np.median(r[:, 1]):8.2e} "
+            f"alpha(med)={np.median(r[:, 2]):6.4f}"
+        )
 
 
 def summarize(trace, iterations=None) -> str:
@@ -179,12 +217,6 @@ def matmul_precision(precision: str):
 
 
 def _check_ported(opt: IPOptions):
-    for var in _UNPORTED_ENV:
-        if os.environ.get(var, "").strip():
-            raise NotImplementedError(
-                f"{var} is a developer hook of the JAX reference and is not "
-                "ported (ROADMAP queue 1 item 4, the ops utilities)"
-            )
     if opt.mu_strategy not in ("monotone", "mehrotra"):
         raise NotImplementedError(
             f"mu_strategy={opt.mu_strategy!r} is not ported; only 'monotone' "
@@ -195,10 +227,17 @@ def _check_ported(opt: IPOptions):
             f"unknown kkt_solver {opt.kkt_solver!r}; use 'auto', 'block', "
             "'pallas', 'dense' or 'structured'"
         )
-    if opt.live_metrics:
-        raise NotImplementedError(
-            "live_metrics is not ported (ROADMAP queue 1 item 4, the ops utilities)"
-        )
+
+
+def _dump_kkt(path, **tensors):
+    """Save the kernel path's first-iteration inputs as the JAX package's
+    ``POCKIT_DUMP_KKT`` file: its keys, its per-lane shapes and padding,
+    with the lane axis leading (dropped for a single lane, as the JAX
+    package's single solve writes it)."""
+    arrays = {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    if arrays["rhs"].shape[0] == 1:
+        arrays = {k: v[0] for k, v in arrays.items()}
+    np.savez(path, **arrays)
 
 
 def make_ip_solver(
@@ -247,6 +286,7 @@ def make_ip_solver(
     """
     opt = options
     _check_ported(opt)
+    debug_trace, dump_kkt = _DEBUG_TRACE, _DUMP_KKT
     mehrotra = opt.mu_strategy == "mehrotra"
     mode = opt.kkt_solver
     use_block = mode in ("auto", "block", "pallas") and block is not None
@@ -657,6 +697,11 @@ def make_ip_solver(
 
             if use_cuda_kkt:
                 p_newton, p_apply, p_pcg = _cuda_for(pivot_rtol, delta_w_floor)
+                if dump_kkt and not os.path.exists(dump_kkt) and not bool(st.it.any()):
+                    _dump_kkt(
+                        dump_kkt, K_ii=K_ii0, K_ir=K_ir0, K_rr=K_rr0, rhs=rhs,
+                        dreg=st.dreg, cap=step_cap, z=z, y=y, D=D, bc=rt["bc"][0],
+                    )
                 dz, p_fac, delta_w, reg_ok = p_newton(
                     K_ii0, K_ir0, K_rr0, rhs, dreg_eff, step_cap, active
                 )
@@ -1125,9 +1170,30 @@ def make_ip_solver(
             )
             dreg_n = torch.where(do_reset, 0.0, dreg_n)
 
-            trace_row = torch.stack([E0, mu, alpha, delta_w, theta0, phi0], -1)
+            if debug_trace:
+                # diagnostic mode (POCKIT_IPM_DEBUG_TRACE=1): record Newton
+                # direction internals [|rhs|, max|K|, |dz|, max|dz|,
+                # delta_w, step_cap] instead of the standard row
+                K_abs = K_ii0.abs().amax((-3, -2, -1)) if use_block else K0.abs().amax((-2, -1))
+                trace_row = torch.stack(
+                    [
+                        torch.linalg.vector_norm(rhs, dim=-1),
+                        K_abs,
+                        torch.linalg.vector_norm(dz, dim=-1),
+                        dz.abs().amax(-1),
+                        delta_w,
+                        step_cap,
+                    ],
+                    -1,
+                )
+            else:
+                trace_row = torch.stack([E0, mu, alpha, delta_w, theta0, phi0], -1)
             trace_n = st.trace.clone()
             trace_n[lanes, st.it.clamp(max=st.trace.shape[1] - 1).long()] = trace_row
+            if opt.live_metrics:
+                _emit_live_metrics(
+                    st.it.cpu().numpy(), trace_row.cpu().numpy(), st.done.cpu().numpy()
+                )
 
             # freeze finished lanes, record status transitions
             finished = st.done | newly_done | blown | infeasible
@@ -1152,7 +1218,8 @@ def make_ip_solver(
             run = (~st.done) & (st.it < opt.max_iter)
             if not bool(run.any()):
                 break
-            st = _select_tree(run, body(st), st)
+            with torch.profiler.record_function("ipm.iteration"):
+                st = _select_tree(run, body(st), st)
 
         # final KKT error for reporting (J^T y via one vjp), then the
         # post-loop dual refresh: a fresh least-squares y accepted per lane

@@ -87,5 +87,7 @@ class IPOptions:
     # matmul precision for the whole solve: "highest" turns TF32 off for
     # the duration of a solve; any other value allows it
     matmul_precision: str = "highest"
-    # per-iteration metric stream to the host: not ported
+    # per-iteration metric stream to the host: one ``[ipm]`` line per IPM
+    # trip (the lane's row for one lane, aggregates over active lanes for
+    # more; costs three small device-to-host copies per trip)
     live_metrics: bool = False

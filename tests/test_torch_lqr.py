@@ -17,6 +17,7 @@ import torch
 
 import pockit_tpu.lobatto as ref_lobatto
 import pockit_tpu_torch.lobatto as port_lobatto
+import pockit_tpu_torch.solver.ipm as port_ipm_solver
 from pockit_tpu.optimizer import ipm as ref_ipm
 from pockit_tpu.optimizer._common import preprocess as ref_preprocess
 from pockit_tpu.solver import IPOptions as RefOptions
@@ -217,21 +218,37 @@ def test_solve_turns_tf32_off_and_restores_the_callers_flags():
     assert after == (True, True)
 
 
-_UNPORTED = {
+# the options of each case
+_CASES = {
     "adaptive": dict(mu_strategy="adaptive"),
     "unrolled": dict(block_core="unrolled"),
     "live_metrics": dict(live_metrics=True),
 }
+# the ops hooks, which raised here until they were ported, and the module
+# constants their environment variables set (read at import)
+_PORTED_HOOKS = {"live_metrics": None, "POCKIT_DUMP_KKT": "_DUMP_KKT",
+                 "POCKIT_IPM_DEBUG_TRACE": "_DEBUG_TRACE"}
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED) + ["POCKIT_DUMP_KKT", "POCKIT_IPM_DEBUG_TRACE"])
-def test_unported_options_raise(name, monkeypatch):
+@pytest.mark.parametrize("name", sorted(_CASES) + ["POCKIT_DUMP_KKT", "POCKIT_IPM_DEBUG_TRACE"])
+def test_unported_options_raise(name, monkeypatch, tmp_path):
+    """What the port leaves out on purpose raises, naming the ROADMAP; the
+    ops hooks (``live_metrics`` and the two developer variables) are
+    ported and solve (``tests/test_torch_ops.py`` holds their output
+    against the reference)."""
     system, phase = build_lqr(port_lobatto, 4, 5)
-    opts = IPOptions(**_UNPORTED.get(name, {}))
-    if name.startswith("POCKIT_"):
-        monkeypatch.setenv(name, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts, device="cpu")
+    opts = IPOptions(**_CASES.get(name, {}))
+    solve = lambda: ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts,
+                              device="cpu", dtype=torch.float64)
+    if name not in _PORTED_HOOKS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            solve()
+        return
+    if _PORTED_HOOKS[name]:
+        value = str(tmp_path / "kkt.npz") if name == "POCKIT_DUMP_KKT" else True
+        monkeypatch.setattr(port_ipm_solver, _PORTED_HOOKS[name], value)
+    _, info = solve()
+    assert info["status"] == 0
 
 
 @pytest.mark.parametrize("kkt_solver", ["block", "pallas"])

@@ -1,4 +1,5 @@
-"""The port stands on its own: importing it (and ``chip_smoke.py`` and
+"""The port stands on its own: importing it (every module, its examples,
+adapters, homotopy and profiling included, and ``chip_smoke.py`` and
 ``kernel_ab.py``) loads neither ``jax`` nor any module of the JAX
 package; its copies of the plain-numpy numerics, discretization blocks
 and mesh planner match the JAX package's; and its entry points ask for
@@ -26,8 +27,8 @@ import pockit_tpu_torch.base.refine_discontinuous as port_refine
 import pockit_tpu_torch.lobatto as port_lobatto
 import pockit_tpu_torch.numerics as port_num
 from pockit_tpu_torch import interop
-from pockit_tpu_torch.optimizer import ipm
-from pockit_tpu_torch.parallel import solve_refine_batch
+from pockit_tpu_torch.optimizer import ipm, ipopt, scipy
+from pockit_tpu_torch.parallel import homotopy_sweep, solve_refine_batch
 from pockit_tpu_torch.transcription.error import make_error_stats
 
 from test_torch_frontend import build_lqr
@@ -39,6 +40,11 @@ _IMPORT_ALL = """
 import importlib.util, pkgutil, sys
 import pockit_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pockit_tpu_torch.__path__, "pockit_tpu_torch.")]
+assert {"pockit_tpu_torch.optimizer.ipopt", "pockit_tpu_torch.optimizer.scipy",
+        "pockit_tpu_torch.parallel.homotopy", "pockit_tpu_torch.utils.profiling",
+        "pockit_tpu_torch.examples.mpc_sweep", "pockit_tpu_torch.examples.lqr",
+        "pockit_tpu_torch.examples.brachistochrone",
+        "pockit_tpu_torch.examples.goddard_ascent"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "kernel_ab"):
@@ -145,7 +151,8 @@ class _StopAtDevice(torch.overrides.TorchFunctionMode):
 @pytest.mark.parametrize("entry", ["solve", "solve_batch", "solve_batch_drained",
                                    "default_runtime", "inputs_from_numpy", "objective",
                                    "gradient", "constraints", "jacobian", "hessian",
-                                   "nlp_callbacks", "error_stats", "solve_refine_batch"])
+                                   "nlp_callbacks", "error_stats", "solve_refine_batch",
+                                   "ipopt_solve", "scipy_solve", "homotopy_sweep"])
 def test_entry_points_default_to_the_card(entry):
     system, phase = build_lqr(port_lobatto, 4, 5)
     guess = [port_lobatto.constant_guess(phase, 0), [0.0]]
@@ -166,6 +173,10 @@ def test_entry_points_default_to_the_card(entry):
         "error_stats": lambda: make_error_stats(system)(
             z0, (np.tile(c.phases[0].fixed_vals, (3, 1)),), (1e-8, 1e-8, 1e-3)),
         "solve_refine_batch": lambda: solve_refine_batch(system, guess),
+        "ipopt_solve": lambda: ipopt.solve(system, guess, {"tol": 1e-8}),
+        "scipy_solve": lambda: scipy.solve(system, guess),
+        "homotopy_sweep": lambda: homotopy_sweep(
+            system, z0, [(np.tile(c.phases[0].fixed_vals, (3, 1)),)]),
     }[entry]
     watch = _StopAtDevice()
     with watch, pytest.raises(LookupError):
