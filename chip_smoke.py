@@ -75,6 +75,24 @@ exits non-zero):
    float32 replan: the device's busy seconds over the replan's wall
    (printed).
 
+10. the multi-device layers and the solver artifacts, on the LQR 10x10 LGL
+   through the kernels (after phase 9, before the pool): a. the sharded
+   batch solve at B=16384 on a one-rank NCCL mesh, float64 (statuses equal
+   to ``ipm.solve_batch``'s, z within 1e-12, n_converged == B) and at the
+   float32 first-pass options (converged counts equal), then on two
+   processes sharing the card over gloo, 8192 rows each, float64 (each
+   launches all three kernels, every lane within 1e-10 of the unsharded
+   solve, the reduced count the sum of the ranks'); b. the sharded
+   structured solve of the 40x10 Radau orbit's condensed K at a random
+   point on one and on two ranks, against ``torch.linalg.solve`` (rtol
+   1e-8, atol 1e-9) and ``make_structured_solve`` (1e-10); c. the bench's
+   first-pass and drain-round artifacts (float32, B=16384), cold start in
+   fresh processes: live (import, build, first drained solve) and from the
+   artifacts (import, load, install, first drained solve, no frontend
+   module imported), each with a second solve; statuses equal, a second
+   load of the same bytes (deserialized anew) bit for bit alike; and a float64 B=1024 artifact
+   against the live solve (obj rtol 1e-12, z atol 1e-10).
+
 The runs of phases 5-8 go four at a time, each in a process of its own
 with its own launch counts: their IPM loops are bound by the host.
 
@@ -93,7 +111,9 @@ from this run's shapes and retries); under ``"gates"`` the same at each
 of phases 5 and 6's shapes and types, with that phase's launches per
 batch; under ``"sweep"`` the same at each padded shape of each of phase
 7's three sweeps, with its launches in that sweep; under ``"mpc"`` its launches per cold
-solve and per replan of phase 9a in each type. The last line is ``{"ok": true,
+solve and per replan of phase 9a in each type; under ``"sharded"`` its
+launches in phase 10a on one rank in each type and on each of the two
+ranks, and in 10c's first drained solve from the artifacts. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -1201,6 +1221,389 @@ def phase_continuation(device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the multi-device layers (sharded batch and structured solves on a
+# one-rank NCCL mesh and on two ranks sharing the card over gloo) and the
+# solver artifacts with their cold start, on the LQR 10x10 LGL
+# ---------------------------------------------------------------------------
+
+SHARD_B = 16384
+ARTIFACT_F64_B = 1024
+_SPAWN_TIMEOUT = 300  # seconds for a spawn of fresh processes; all are killed past it
+
+# two ranks sharing one card over gloo (NCCL refuses two ranks on one GPU):
+# 10a's float64 rows of each rank, then 10b's structured solve of the orbit's K
+_TWO_RANKS = r"""
+import gc, sys, time
+import numpy as np
+import torch
+from pockit_tpu_torch.examples.lqr import build
+from pockit_tpu_torch.optimizer.ipm import default_options
+from pockit_tpu_torch.parallel import (initialize_distributed, instance_mesh,
+                                       make_sharded_batch_solver, make_sharded_structured_solve)
+from pockit_tpu_torch.parallel.sharding import local_rows
+from pockit_tpu_torch.solver import Bounds, broadcast_bounds, cuda_kkt
+from pockit_tpu_torch.solver.structured import StructuredLayout
+from torch.distributed.device_mesh import init_device_mesh
+
+rank, store, data, out, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5]
+assert initialize_distributed("file://" + store, num_processes=2, process_id=rank, backend="gloo")
+inp = np.load(data)
+system, _ = build()
+c = system.compiled
+mesh = instance_mesh(device_type=device)
+rows = local_rows(len(inp["z0"]), mesh)
+t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+z0, bc = t(inp["z0"][rows]), t(inp["bc"][rows])
+bounds = broadcast_bounds(Bounds(*(t(np.asarray(b, dtype=np.float64))
+                                   for b in (c.z_lb, c.z_ub, c.c_lb, c.c_ub))), z0.shape[0])
+step = make_sharded_batch_solver(c, mesh, default_options(torch.float64))
+cuda_kkt.reset_launches()
+t0 = time.perf_counter()
+res, n_conv = step(z0, bounds, {"bc": (bc,)})
+torch.cuda.synchronize() if device == "cuda" else None
+wall = time.perf_counter() - t0
+launches = [cuda_kkt.LAUNCHES[k] for k in ("factor", "apply_down", "apply_up")]
+kkt_path = step.kkt_path(torch.float64, torch.device(device))
+
+tmesh = init_device_mesh(device, (2,), mesh_dim_names=("time",))
+layout = StructuredLayout(inp["interior"], inp["reduced"], 0, int(inp["n_cols"]))
+solve = make_sharded_structured_solve(layout, tmesh, "time")
+K, rhs = t(inp["K"]), t(inp["rhs"])
+x = solve(K, rhs)  # the first call takes the collectives' set-up
+torch.cuda.synchronize() if device == "cuda" else None
+t0 = time.perf_counter()
+x = solve(K, rhs)
+torch.cuda.synchronize() if device == "cuda" else None
+np.savez(out, status=res.status.cpu().numpy(), z=res.z.cpu().numpy(), obj=res.obj.cpu().numpy(),
+         n_conv=int(n_conv), own_conv=int((res.status == 0).sum()), start=rows.start, wall=wall,
+         launches=launches, kkt_path=kkt_path, x=x.cpu().numpy(), structured_wall=time.perf_counter() - t0)
+# drop the meshes and what holds their groups first: a gloo group that
+# outlives destroy_process_group into interpreter exit can abort the process
+del mesh, step, tmesh, solve
+gc.collect()
+torch.distributed.destroy_process_group()
+"""
+
+# cold start: a fresh process that builds the system and solves (live), or
+# loads the artifacts and solves with no frontend (artifact)
+_COLD = r"""
+import time
+t_start = time.perf_counter()
+import json, sys
+import numpy as np
+import torch
+kind, data, out, device = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+from pockit_tpu_torch.optimizer import ipm
+from pockit_tpu_torch.solver import IPOptions, cuda_kkt
+t_import = time.perf_counter()
+inp = np.load(data)
+meta = json.loads(str(inp["meta"]))
+opts_fast, opts_drain = IPOptions(**meta["opts_fast"]), IPOptions(**meta["opts_drain"])
+if kind == "live":
+    from pockit_tpu_torch.examples.lqr import build
+    system, _ = build()
+else:
+    from pockit_tpu_torch.utils import aot
+    first, drain = open(meta["first"], "rb").read(), open(meta["drain"], "rb").read()
+    system = aot.install_batch_solver(None, opts_fast, first)
+    aot.install_drain_round(system, opts_drain, drain)
+t_ready = time.perf_counter()
+
+def solve(system):
+    cuda_kkt.reset_launches()
+    t0 = time.perf_counter()
+    res = ipm.solve_batch_drained(
+        system, inp["z0"], bc_overrides=(inp["bc"],), optimizer_options=opts_drain,
+        first_pass_options=opts_fast, drain_frac=8, max_drain_rounds=4,
+        device=device, dtype=torch.float32)
+    torch.cuda.synchronize() if device == "cuda" else None
+    return res, time.perf_counter() - t0, [cuda_kkt.LAUNCHES[k] for k in ("factor", "apply_down", "apply_up")]
+
+(st, obj, it, z), first_s, launches = solve(system)
+t_first = time.perf_counter()
+frontend = sorted(m for m in sys.modules if m.split(".")[:2] in (
+    ["pockit_tpu_torch", "base"], ["pockit_tpu_torch", "lobatto"],
+    ["pockit_tpu_torch", "radau"], ["pockit_tpu_torch", "transcription"]))
+(st2, obj2, _, z2), second_s, _ = solve(system)
+rec = dict(import_s=t_import - t_start, ready_s=t_ready - t_import, first_solve_s=first_s,
+           to_first_result_s=t_first - t_start, second_solve_s=second_s, launches=launches,
+           frontend_modules=frontend, converged=float((st == 0).mean()))
+same = None
+if kind == "artifact":  # a second load of the same bytes solves bit for bit alike
+    loaded = ipm.solver_cache(system.compiled)[(opts_fast, "batch")].programs
+    aot._LOADED.clear()  # so the second load deserializes the bytes anew
+    again = aot.install_batch_solver(None, opts_fast, first)
+    aot.install_drain_round(again, opts_drain, drain)
+    anew = ipm.solver_cache(again.compiled)[(opts_fast, "batch")].programs
+    (st3, _, _, z3), _, _ = solve(again)
+    same = bool(all(anew[k] is not p for k, p in loaded.items())
+                and np.array_equal(st3, st) and torch.equal(z3, z))
+rec["second_load_bitwise"] = same
+np.savez(out, status=st, obj=obj, z=z.cpu().numpy(), rec=json.dumps(rec))
+"""
+
+
+def spawn(argvs, timeout=_SPAWN_TIMEOUT):
+    """Run one fresh Python process per ``argvs`` entry, all at once, from
+    the repo root; every one is killed if one fails or they outlast
+    ``timeout``. Returns their walls."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", *a], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in argvs]
+    try:
+        results = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, results):
+        if p.returncode != 0:
+            raise AssertionError(f"a spawned process failed ({p.returncode}):\n{err[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def sharded_run(B=SHARD_B, device="cuda", launched=True):
+    """10a: the sharded batch solve of the LQR 10x10 LGL at B lanes: on a
+    one-rank mesh (NCCL on the card) in float64 against ``ipm.solve_batch``
+    of the same batch (statuses equal, z within 1e-12, n_converged == B)
+    and at the float32 first-pass options (converged counts equal); then
+    on two ranks sharing the device over gloo, B/2 rows each, in float64:
+    every lane within 1e-10 of the unsharded solve, the reduced count the
+    sum of the ranks' own. ``launched``: each run must launch all three
+    kernels."""
+    import torch
+
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.optimizer.ipm import default_options
+    from pockit_tpu_torch.parallel import instance_mesh, make_sharded_batch_solver
+    from pockit_tpu_torch.solver import Bounds, IPOptions, broadcast_bounds, cuda_kkt
+
+    system, _, x0 = lqr_problem()
+    c = system.compiled
+    bc = np.tile(c.phases[0].fixed_vals, (B, 1))
+    bc[:, 0] = np.random.default_rng(10).uniform(0.5, 1.5, B)
+    mesh = instance_mesh(device_type=device)
+    rec = dict(batch=B, mesh=list(mesh.mesh.shape), backend=torch.distributed.get_backend())
+    out = {}
+    opts_fast = IPOptions(tol=5e-6, max_iter=2, refine_steps=3, max_ls=4, soc=False,
+                          feasibility_fallback=False, pallas_attempts=3, newton_residual_rtol=0.0)
+    for dtype, opts in ((torch.float64, default_options(torch.float64)), (torch.float32, opts_fast)):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        z0, bc_t = t(np.tile(x0, (B, 1))), t(bc)
+        bounds = broadcast_bounds(Bounds(*(t(np.asarray(b, dtype=np.float64))
+                                           for b in (c.z_lb, c.z_ub, c.c_lb, c.c_ub))), B)
+        want = ipm.solve_batch(system, z0, bc_overrides=(bc_t,), optimizer_options=opts)
+        step = make_sharded_batch_solver(c, mesh, opts)
+        cuda_kkt.reset_launches()
+        t0 = time.perf_counter()
+        res, n_conv = step(z0, bounds, {"bc": (bc_t,)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = str(dtype).replace("torch.", "")
+        r = dict(wall_s=wall, converged_frac=float((res.status == 0).double().mean()),
+                 n_converged=int(n_conv), unsharded_converged=int((want.status == 0).sum()),
+                 kkt_path=step.kkt_path(dtype, torch.device(device)),
+                 launches=dict(cuda_kkt.LAUNCHES), max_abs_z_diff=float((res.z - want.z).abs().max()))
+        out[name] = r
+        if int(n_conv) != r["unsharded_converged"] or int(n_conv) != int((res.status == 0).sum()):
+            raise AssertionError(f"10a one rank {name}: n_converged {int(n_conv)} against "
+                                 f"{r['unsharded_converged']}")
+        if dtype == torch.float64:
+            unsharded = want
+            if (not torch.equal(res.status, want.status) or r["max_abs_z_diff"] > 1e-12
+                    or int(n_conv) != B):
+                raise AssertionError(f"10a one rank float64: {r}")
+        if launched and (r["kkt_path"] != "pallas" or min(r["launches"].values()) == 0):
+            raise AssertionError(f"10a one rank {name}: not the kernel path: {r}")
+    rec["one_rank"] = out
+    return rec, system, bc, x0, unsharded
+
+
+def structured_inputs(device="cuda", mesh=40, num_point=10):
+    """10b's system: the Radau orbit's condensed K at a random point, built
+    as ``tests/test_parallel/test_sharded_structured.py`` builds it, and
+    its layout."""
+    import torch
+
+    import pockit_tpu_torch.radau as radau
+    from pockit_tpu_torch.solver.structured import structured_layout
+
+    system, _ = build_orbit(radau, mesh, num_point)
+    compiled = system.compiled
+    rng = np.random.default_rng(0)
+    z = rng.uniform(0.5, 1.2, system.L)
+    lam = rng.normal(0, 1, compiled.m)
+    W = compiled.hessian(z, lam, 1.0, device=device).cpu().numpy()
+    J = compiled.jacobian(z, device=device).cpu().numpy()
+    K = W + np.diag(rng.uniform(0.1, 5.0, system.L)) + (J.T * rng.uniform(0.1, 10.0, compiled.m)) @ J
+    ev = np.linalg.eigvalsh(K)
+    if ev.min() < 1e-6:
+        K = K + (1e-3 - min(ev.min(), 0)) * np.eye(system.L)
+    layout = structured_layout(system)
+    if layout is None or layout.krylov_rank:
+        raise AssertionError("10b: the orbit's layout is not an exact block-arrow pattern")
+    return K, rng.normal(size=system.L), layout
+
+
+def structured_run(K, rhs, layout, device="cuda"):
+    """10b on one rank: the sharded structured solve against
+    ``torch.linalg.solve`` (rtol 1e-8, atol 1e-9, the JAX test's) and the
+    port's ``make_structured_solve`` (atol 1e-10)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from pockit_tpu_torch.parallel import make_sharded_structured_solve
+    from pockit_tpu_torch.solver.structured import make_structured_solve
+
+    K_t = torch.as_tensor(K, device=device)
+    rhs_t = torch.as_tensor(rhs, device=device)
+    solve = make_sharded_structured_solve(layout, init_device_mesh(device, (1,), mesh_dim_names=("time",)),
+                                          "time")
+    solve(K_t, rhs_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = solve(K_t, rhs_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x_dense = torch.linalg.solve(K_t, rhs_t).cpu().numpy()
+    x_un = make_structured_solve(layout)(K_t, rhs_t)[0].cpu().numpy()
+    return x.cpu().numpy(), x_dense, x_un, wall
+
+
+def check_structured(x, x_dense, x_un, what):
+    if not (np.allclose(x, x_dense, rtol=1e-8, atol=1e-9) and np.abs(x - x_un).max() <= 1e-10):
+        raise AssertionError(f"10b {what}: off torch.linalg.solve by {np.abs(x - x_dense).max():.3e}, "
+                             f"off make_structured_solve by {np.abs(x - x_un).max():.3e}")
+
+
+def artifact_run(system, x0, tmp, B=SHARD_B, f64_B=ARTIFACT_F64_B, device="cuda", launched=True):
+    """10c: the first-pass and drain-round artifacts of the float32 bench
+    solve at B lanes; cold start in fresh processes, live (import, build,
+    first drained solve) then from the artifacts (import, load, install,
+    first drained solve, no frontend module), each with a second solve
+    in the same process; the artifacts' statuses equal the live ones, and a
+    second load of the same bytes solves bit for bit alike. Then a float64
+    batch artifact at ``f64_B`` lanes against the live solve (obj rtol
+    1e-12, z atol 1e-10, the JAX test's)."""
+    import dataclasses
+
+    import torch
+
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.solver import IPOptions
+    from pockit_tpu_torch.utils import aot
+
+    opts_fast = IPOptions(tol=5e-6, max_iter=2, refine_steps=3, max_ls=4, soc=False,
+                          feasibility_fallback=False, pallas_attempts=3, newton_residual_rtol=0.0)
+    opts_drain = IPOptions(tol=5e-6, max_iter=80, refine_steps=3, pallas_attempts=3,
+                           newton_residual_rtol=0.0)
+    f32 = dict(device=device, dtype=torch.float32)
+    t0 = time.perf_counter()
+    first = aot.export_batch_solver(system, B, opts_fast, **f32)
+    drain = aot.export_drain_round(system, B, B // 8, opts_drain, **f32)
+    rec = dict(batch=B, export_s=time.perf_counter() - t0, artifact_bytes=[len(first), len(drain)])
+    paths = {k: f"{tmp}/{aot.artifact_name('lqr_' + k, B, **f32)}" for k in ("first", "drain")}
+    for k, blob in (("first", first), ("drain", drain)):
+        with open(paths[k], "wb") as fh:
+            fh.write(blob)
+    bc = np.tile(system.compiled.phases[0].fixed_vals, (B, 1))
+    bc[:, 0] = np.random.default_rng(11).uniform(0.5, 1.5, B)
+    meta = dict(opts_fast=dataclasses.asdict(opts_fast), opts_drain=dataclasses.asdict(opts_drain),
+                **paths)
+    np.savez(f"{tmp}/cold.npz", z0=np.tile(x0, (B, 1)).astype(np.float32), bc=bc.astype(np.float32),
+             meta=json.dumps(meta))
+    runs = {}
+    for kind in ("live", "artifact"):  # one after the other: each a cold start alone
+        wall = spawn([[_COLD, kind, f"{tmp}/cold.npz", f"{tmp}/{kind}.npz", device]])
+        got = np.load(f"{tmp}/{kind}.npz")
+        runs[kind] = dict(json.loads(str(got["rec"])), process_wall_s=wall)
+        runs[kind]["status"] = got["status"]
+    rec.update({k: {n: v for n, v in r.items() if n != "status"} for k, r in runs.items()})
+    live, art = runs["live"], runs["artifact"]
+    if not np.array_equal(live["status"], art["status"]) or not art["second_load_bitwise"]:
+        raise AssertionError(f"10c: the artifacts' statuses differ from the live solve's, or a "
+                             f"second load does not solve alike: {rec}")
+    if art["frontend_modules"]:
+        raise AssertionError(f"10c: the artifact process imported the frontend: {art['frontend_modules']}")
+    if live["converged"] < 0.99:
+        raise AssertionError(f"10c: the live cold solve converged {live['converged']}")
+    if launched and min(art["launches"]) == 0:
+        raise AssertionError(f"10c: the artifact solve did not launch every kernel: {art['launches']}")
+
+    # float64 pair, in this process
+    opts = IPOptions(tol=1e-9)
+    f64 = dict(device=device, dtype=torch.float64)
+    call = aot.load_batch_solver(aot.export_batch_solver(system, f64_B, opts, **f64))
+    z0 = torch.as_tensor(np.tile(x0, (f64_B, 1)), **f64)
+    bc_t = torch.as_tensor(bc[:f64_B], **f64)
+    res_aot = call(z0, bc_t)
+    res_live = ipm.solve_batch(system, z0, bc_overrides=(bc_t,), optimizer_options=opts)
+    obj_rel = float(((res_aot.obj - res_live.obj).abs() / res_live.obj.abs()).max())
+    z_abs = float((res_aot.z - res_live.z).abs().max())
+    rec["float64_pair"] = dict(batch=f64_B, max_rel_obj=obj_rel, max_abs_z=z_abs,
+                               converged=float((res_aot.status == 0).double().mean()))
+    if obj_rel > 1e-12 or z_abs > 1e-10 or not bool((res_aot.status == 0).all()):
+        raise AssertionError(f"10c float64 pair: {rec['float64_pair']}")
+    return rec
+
+
+def phase_multidevice(device="cuda", B=SHARD_B, f64_B=ARTIFACT_F64_B, orbit=(40, 10), launched=True):
+    """Phase 10, parts a to c; returns their figures. Leaves no process
+    group behind."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            rec_a, system, bc, x0, unsharded = sharded_run(B, device, launched)
+            K, rhs, layout = structured_inputs(device, *orbit)
+            x1, x_dense, x_un, wall1 = structured_run(K, rhs, layout, device)
+            check_structured(x1, x_dense, x_un, "one rank")
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        # two ranks sharing the device over gloo: 10a's float64 rows, then 10b
+        np.savez(f"{tmp}/two.npz", z0=np.tile(x0, (B, 1)), bc=bc, K=K, rhs=rhs,
+                 interior=layout.interior, reduced=layout.reduced, n_cols=layout.n_cols)
+        wall = spawn([[_TWO_RANKS, str(r), f"{tmp}/store", f"{tmp}/two.npz", f"{tmp}/rank{r}.npz",
+                       device] for r in range(2)])
+        ranks = [np.load(f"{tmp}/rank{r}.npz") for r in range(2)]
+        z = np.concatenate([r["z"] for r in ranks])
+        status = np.concatenate([r["status"] for r in ranks])
+        two = dict(process_wall_s=wall, ranks=[dict(
+            rows=[int(r["start"]), int(r["start"]) + B // 2], wall_s=float(r["wall"]),
+            converged_frac=float((r["status"] == 0).mean()), n_converged=int(r["n_conv"]),
+            launches=dict(zip(("factor", "apply_down", "apply_up"), r["launches"].tolist())),
+            kkt_path=str(r["kkt_path"]), structured_wall_s=float(r["structured_wall"])) for r in ranks],
+            max_abs_z_diff=float(np.abs(z - unsharded.z.cpu().numpy()).max()))
+        rec_a["two_ranks"] = two
+        print("phase 10a sharded batch solve: " + json.dumps(rec_a), flush=True)
+        own = sum(int(r["own_conv"]) for r in ranks)
+        if any(int(r["n_conv"]) != own for r in ranks) or two["max_abs_z_diff"] > 1e-10 or \
+                not np.array_equal(status, unsharded.status.cpu().numpy()):
+            raise AssertionError(f"10a two ranks: {two}")
+        if launched and any(r["kkt_path"] != "pallas" or min(r["launches"].values()) == 0
+                            for r in two["ranks"]):
+            raise AssertionError(f"10a two ranks: a rank did not launch every kernel: {two}")
+        for r in ranks:
+            check_structured(r["x"], x_dense, x_un, f"rank {int(r['start']) // (B // 2)} of two")
+        rec_b = dict(orbit=list(orbit), L=int(K.shape[0]), n_blocks=int(layout.interior.shape[0]),
+                     one_rank_wall_s=wall1, two_rank_walls_s=[float(r["structured_wall"]) for r in ranks],
+                     max_abs_dense=float(max(np.abs(x - x_dense).max() for x in [x1] + [r["x"] for r in ranks])),
+                     max_abs_structured=float(max(np.abs(x - x_un).max() for x in [x1] + [r["x"] for r in ranks])))
+        print("phase 10b sharded structured solve: " + json.dumps(rec_b), flush=True)
+        rec_c = artifact_run(system, x0, tmp, B, f64_B, device, launched)
+        print("phase 10c artifacts and cold start: " + json.dumps(rec_c), flush=True)
+    return dict(sharded=rec_a, structured=rec_b, artifact=rec_c)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed repetitions of phase 4")
@@ -1368,7 +1771,11 @@ def main():
     cont = phase_continuation()
     t9 = time.perf_counter()
     seconds["9"] = t9 - t4
-    t4 = t9
+
+    # -- phase 10: the multi-device layers, the solver artifacts ----------------
+    multi = phase_multidevice()
+    t4 = time.perf_counter()
+    seconds["10"] = t4 - t9
 
     # -- phases 5 to 8: the gates, the refine sweep, F1 -------------------------
     torch.cuda.empty_cache()  # the runs' processes need the card's memory
@@ -1429,6 +1836,16 @@ def main():
             "float32_replan_trace_ms": traced["s"] * 1e3 / traced["launches"] if traced else None,
             "float32_bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
 
+    def at_sharded(k):
+        """Kernel ``k`` in phase 10: its launches on the one-rank mesh in
+        each type and on each of the two ranks (float64), all at B=16384,
+        and in 10c's first drained solve from the artifacts."""
+        a = multi["sharded"]
+        return {"batch": SHARD_B, "shape": list(LQR_PADDED),
+                "one_rank": {dt: a["one_rank"][dt]["launches"][k] for dt in ("float64", "float32")},
+                "two_ranks_float64": [r["launches"][k] for r in a["two_ranks"]["ranks"]],
+                "artifact_first_solve": multi["artifact"]["artifact"]["launches"][list(replaces).index(k)]}
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": launches[k], "launches_per_batch": launches[k] / args.reps,
@@ -1439,7 +1856,7 @@ def main():
                    for gate in GATE_SHAPES for dt in (torch.float64, torch.float32)},
          "sweep": [at_sweep(k, run, padded) for run in ("f32", "f64", "bang_bang")
                    for padded in sweeps[run]["kernels"]],
-         "mpc": at_mpc(k)}
+         "mpc": at_mpc(k), "sharded": at_sharded(k)}
         for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -19,11 +19,22 @@ from sympy.printing.pytorch import TorchPrinter
 _F32_SAFE_MAG = 1e30
 
 
-def is_transform_wrapped(t: torch.Tensor) -> bool:
-    """Whether ``t`` was created inside ``torch.func.grad`` / ``jvp``: such a
-    tensor is wrapped for that transform's level and must not be cached
-    past it. (``vmap`` leaves created tensors unwrapped.)"""
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+def host_constant(data, dtype=None, device=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype, device)`` made outside every
+    ``torch.func`` transform level: a constant made inside ``grad`` or
+    ``jvp`` would otherwise be wrapped for that level, which neither a cache
+    past the call nor a traced program (``make_fx``, ``torch.export``) can
+    hold. Its value and every derivative through it are the same."""
+    with torch._C._DisableFuncTorch():
+        return torch.as_tensor(data, dtype=dtype, device=device)
+
+
+def is_cacheable(t: torch.Tensor) -> bool:
+    """Whether a constant ``t`` made by :func:`host_constant` may be cached
+    past the call that made it: not while ``torch.export`` traces, where it
+    is a fake or functional tensor subclass that a later call would feed
+    back into a trace as a constant."""
+    return type(t) is torch.Tensor and not torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 class _exp_folded(sp.Function):
@@ -159,19 +170,19 @@ class LoweredFunc:
             values = [
                 v
                 if isinstance(v, torch.Tensor)
-                else torch.as_tensor(v, dtype=dtype, device=device)
+                else host_constant(v, dtype=dtype, device=device)
                 for v in values
             ]
         key = (dtype, device)
         consts = self._const_cache.get(key)
         if consts is None:
-            consts = [torch.tensor(c, dtype=dtype, device=device) for c in self._consts]
-            if not any(map(is_transform_wrapped, consts)):
+            consts = [host_constant(c, dtype=dtype, device=device) for c in self._consts]
+            if all(map(is_cacheable, consts)):
                 self._const_cache[key] = consts
         out = self._fn(*values, *consts)
         shape = torch.broadcast_shapes(*[v.shape for v in values]) if values else ()
         if not isinstance(out, torch.Tensor):
-            out = torch.as_tensor(out, dtype=dtype, device=device)
+            out = host_constant(out, dtype=dtype, device=device)
         if out.shape != shape:
             out = torch.broadcast_to(out, shape)
         return out

@@ -12,20 +12,28 @@ given; numpy inputs go to ``device`` (default ``"cuda"``: pass
 ``torch.get_default_dtype()``, the port's counterpart of JAX's x64 flag).
 Asking for CUDA where there is no card raises PyTorch's own error: nothing
 moves to the CPU unasked.
+
+``solve_batch`` and the first pass of ``solve_batch_drained`` run a batch
+artifact installed for their options (``utils.aot.install_batch_solver``),
+and each drain round runs an installed drain-round artifact
+(``install_drain_round``); neither needs the frontend, so a system loaded
+from artifacts (``utils.aot.ArtifactSystem``) solves through them with no
+``System`` built.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
-from pockit_tpu_torch.base.system import SystemBase
-from pockit_tpu_torch.optimizer._common import postprocess, preprocess
 from pockit_tpu_torch.solver import Bounds, IPOptions, broadcast_bounds, make_ip_solver
+
+if TYPE_CHECKING:
+    from pockit_tpu_torch.base.system import SystemBase
 
 _STATUS_MSG = {
     0: b"Solve Succeeded (KKT error below tolerance).",
@@ -44,39 +52,58 @@ def default_options(dtype=None) -> IPOptions:
     return IPOptions(tol=2e-5)
 
 
-def _solver_for(system: SystemBase, options: IPOptions):
-    """The built solver for ``options``, cached on the compiled system.
-    ``"structured"`` and the block-arrow modes fall back to the dense path,
-    with a warning, on a degenerate mesh that has no interval-interior
-    column; ``"auto"`` takes it without one."""
-    compiled = system.compiled
+def solver_cache(compiled) -> dict:
+    """The compiled system's cache: built solvers keyed by options, and the
+    installed artifacts keyed by ``(options, "batch")`` and ``(options,
+    "drain_round")``."""
     cache = getattr(compiled, "_ipm_cache", None)
     if cache is None:
         cache = {}
         compiled._ipm_cache = cache
+    return cache
+
+
+def kkt_parts(system: SystemBase, options: IPOptions):
+    """``(structured, block)``: what the solver for ``options`` factors.
+    ``"structured"`` and the block-arrow modes fall back to the dense path
+    (both ``None``), with a warning, on a degenerate mesh that has no
+    interval-interior column; ``"auto"`` takes it without one."""
+    structured = None
+    block = None
+    if options.kkt_solver == "structured":
+        from pockit_tpu_torch.solver.structured import structured_layout
+
+        structured = structured_layout(system)
+        if structured is None:
+            warnings.warn(
+                "structured KKT solver requested but the problem has "
+                "no interval-interior columns (degenerate tiny mesh); "
+                "falling back to the dense solver"
+            )
+    elif options.kkt_solver in ("auto", "block", "pallas"):
+        from pockit_tpu_torch.transcription.kkt import make_block_kkt
+
+        block = make_block_kkt(system)
+        if block is None and options.kkt_solver != "auto":
+            warnings.warn(
+                f"{options.kkt_solver} KKT solver requested but the "
+                "problem has no interval-interior columns (degenerate "
+                "tiny mesh); falling back to the dense solver"
+            )
+    return structured, block
+
+
+def _solver_for(system: SystemBase, options: IPOptions):
+    """The built solver for ``options``, cached on the compiled system."""
+    compiled = system.compiled
+    cache = solver_cache(compiled)
     if options not in cache:
-        structured = None
-        block = None
-        if options.kkt_solver == "structured":
-            from pockit_tpu_torch.solver.structured import structured_layout
-
-            structured = structured_layout(system)
-            if structured is None:
-                warnings.warn(
-                    "structured KKT solver requested but the problem has "
-                    "no interval-interior columns (degenerate tiny mesh); "
-                    "falling back to the dense solver"
-                )
-        elif options.kkt_solver in ("auto", "block", "pallas"):
-            from pockit_tpu_torch.transcription.kkt import make_block_kkt
-
-            block = make_block_kkt(system)
-            if block is None and options.kkt_solver != "auto":
-                warnings.warn(
-                    f"{options.kkt_solver} KKT solver requested but the "
-                    "problem has no interval-interior columns (degenerate "
-                    "tiny mesh); falling back to the dense solver"
-                )
+        if getattr(compiled, "from_artifacts", False):
+            raise ValueError(
+                "a system loaded from solver artifacts solves only through "
+                f"the artifacts installed on it; none is installed for {options}"
+            )
+        structured, block = kkt_parts(system, options)
         cache[options] = make_ip_solver(
             compiled.objective_fn,
             compiled.constraints_fn,
@@ -140,6 +167,8 @@ def solve(
         ``iterations``, ``kkt_error``, ``mu``, ``kkt_solver`` (the KKT path
         taken), ``mult_c``, ``x``, ``trace``.
     """
+    from pockit_tpu_torch.optimizer._common import postprocess, preprocess
+
     dtype = dtype or torch.get_default_dtype()
     x_0, guess_is_variable = preprocess(system, guess)
     res = solve_batch(
@@ -183,7 +212,9 @@ def solve_batch(
     All instances share the NLP structure; per-instance data varies through
     the initial guesses ``guess_batch (B, L)``, the FIXED boundary values
     ``bc_overrides`` (one ``(B, n_fixed)`` array per phase) and optionally
-    the bounds (a ``Bounds`` with leading batch axes).
+    the bounds (a ``Bounds`` with leading batch axes). A batch artifact
+    installed for ``optimizer_options`` runs instead of the built solver;
+    its bounds are baked in, so it takes no ``bounds_override``.
 
     Returns a batched :class:`IPResult` on the guesses' device.
     """
@@ -191,10 +222,32 @@ def solve_batch(
     B = z0.shape[0]
     if optimizer_options is None:
         optimizer_options = default_options(z0.dtype)
-    compiled, solve_fn, bounds0 = _solver_for(system, optimizer_options)
+    compiled = system.compiled
     rt = {"bc": _bc_batch(compiled, bc_overrides, B, z0.device, z0.dtype)}
+    installed = solver_cache(compiled).get((optimizer_options, "batch"))
+    if installed is not None:
+        if bounds_override is not None:
+            raise ValueError("an installed batch artifact has its bounds baked in")
+        return installed(z0, *rt["bc"])
+    _, solve_fn, bounds0 = _solver_for(system, optimizer_options)
     bounds = broadcast_bounds(bounds0, B) if bounds_override is None else bounds_override
     return solve_fn(z0, bounds, rt)
+
+
+def make_drain_round(solve_fn, bounds_d: Bounds):
+    """``drain_round(z_full, idx, *bc_full) -> (z_full', packed)``: gather
+    the rows ``idx`` of ``z_full`` and of each boundary-value batch, solve
+    them with ``solve_fn`` and ``bounds_d``, scatter the solutions back, and
+    stack (status, obj, iterations) into ``packed (3, B_drain)`` for one
+    host fetch."""
+
+    def drain_round(z, idx, *bc):
+        r = solve_fn(z[idx], bounds_d, {"bc": tuple(v[idx] for v in bc)})
+        pk = torch.stack([r.status.to(r.obj.dtype), r.obj, r.iterations.to(r.obj.dtype)])
+        # duplicate indices (np.resize tiling) write identical rows
+        return z.index_put((idx,), r.z), pk
+
+    return drain_round
 
 
 def solve_batch_drained(
@@ -216,8 +269,10 @@ def solve_batch_drained(
     A short-iteration first pass over the full batch, then the unconverged
     lanes are gathered into a compact ``B // drain_frac`` batch (indices
     tiled by ``np.resize`` to fill it), solved, and written back, for up to
-    ``max_drain_rounds`` rounds. Returns ``(status, obj, iterations, z)``:
-    host numpy arrays and ``z`` on the solve's device.
+    ``max_drain_rounds`` rounds. A drain-round artifact installed for
+    ``optimizer_options`` runs each round in place of the built solver.
+    Returns ``(status, obj, iterations, z)``: host numpy arrays and ``z`` on
+    the solve's device.
     """
     z0 = _as_batch(guess_batch, device, dtype)
     if optimizer_options is None:
@@ -241,19 +296,19 @@ def solve_batch_drained(
     z = res.z
     first_pass_mask = status == 0
 
-    compiled, solve_fn_d, bounds0 = _solver_for(system, optimizer_options)
+    compiled = system.compiled
+    drain_round = solver_cache(compiled).get((optimizer_options, "drain_round"))
+    if drain_round is None:
+        _, solve_fn_d, bounds0 = _solver_for(system, optimizer_options)
+        drain_round = make_drain_round(solve_fn_d, broadcast_bounds(bounds0, B_drain))
+
     bc_full = _bc_batch(compiled, bc_overrides, B, z.device, z.dtype)
     pending = np.where(status != 0)[0]
     rounds = 0
     while len(pending) and rounds < max_drain_rounds:
         take = pending[:B_drain]
         idx = torch.as_tensor(np.resize(take, B_drain), device=z.device)
-        r = solve_fn_d(
-            z[idx], broadcast_bounds(bounds0, B_drain), {"bc": tuple(v[idx] for v in bc_full)}
-        )
-        # duplicate indices (np.resize tiling) write identical rows
-        z = z.index_put((idx,), r.z)
-        pk = torch.stack([r.status.to(r.obj.dtype), r.obj, r.iterations.to(r.obj.dtype)])
+        z, pk = drain_round(z, idx, *bc_full)
         pk = pk.cpu().numpy()
         uniq = len(take)
         status[take] = pk[0, :uniq].astype(np.int32)

@@ -52,13 +52,17 @@ def _nvcc() -> str:
     return path
 
 
+def source_hash(source: Path = SOURCE) -> str:
+    """The build key of ``source``: a hash of its bytes and the flags."""
+    return hashlib.sha256(Path(source).read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+
+
 def build(source: Path = SOURCE) -> Path:
     """Compile ``source`` (by default the port's kernels) if this source and
     flag set has no library yet; returns the library's path, with
     ``ptxas.log`` beside it."""
     source = Path(source)
-    key = hashlib.sha256(source.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / key
+    out_dir = BUILD_ROOT / source_hash(source)
     lib = out_dir / "libbak.so"
     if lib.exists():
         return lib

@@ -1,13 +1,15 @@
 """Block-arrow layout and the plain batched block-arrow factorization.
 
-The port of ``pockit_tpu/solver/structured.py`` on one device: the static
-layout (:func:`structured_layout`, numpy/sympy), the pairwise summation the
+The port of ``pockit_tpu/solver/structured.py``: the static layout
+(:func:`structured_layout`, numpy/sympy), the pairwise summation the
 kernels keep (:func:`_tree_sum`), the LAPACK-backed block-arrow core
 (:func:`make_block_arrow_core`, batched ``torch.linalg.cholesky_ex`` /
 ``solve_triangular``), the pattern-preconditioned CG
-(:func:`make_pcg_apply`), and the dense-K entry points of the
+(:func:`make_pcg_apply`), the dense-K entry points of the
 ``kkt_solver="structured"`` oracle path (:func:`make_structured_factor`,
-:func:`make_structured_solve`, :func:`pattern_violation`).
+:func:`make_structured_solve`, :func:`pattern_violation`), and the solve of
+one instance with its interiors spread over the ranks of a mesh axis
+(:func:`make_sharded_structured_solve`).
 
 The condensed interior-point matrix of a collocation NLP is block-arrow:
 interval interiors are mutually disjoint and only borders, times and
@@ -366,5 +368,109 @@ def make_structured_solve(layout: StructuredLayout):
     def solve(K, rhs):
         factors, p_min, p_max = factor(K)
         return apply(factors, rhs), p_min, p_max
+
+    return solve
+
+
+def make_sharded_structured_solve(
+    layout: StructuredLayout, mesh, axis: str, method: str = "auto"
+):
+    """Time-axis-sharded structured solve over the ``axis`` of a
+    ``DeviceMesh``: ``solve(K (n, n), rhs (n,)) -> x``.
+
+    The interval-interior blocks are independent, so they shard over the
+    ranks of ``axis``: each rank gathers and factors its own interiors (one
+    small batched Cholesky), one ``all_reduce`` pair sums the reduced Schur
+    contributions (an ``n_red x n_red`` matrix and a vector), the small
+    border + arrow system is solved on every rank alike, and one more
+    ``all_reduce`` sums the back-substituted interiors. ``K`` and ``rhs``
+    enter replicated, and every rank returns the whole ``x``. The number of
+    interior blocks must be divisible by the axis size; exact for
+    ``krylov_rank == 0`` layouts.
+
+    ``method``: "auto" and "lax" factor with ``torch.linalg`` (the JAX
+    solve uses no Pallas kernel here); "unrolled" (an expander-free form
+    that only the TPU needed) is not ported.
+    """
+    import torch.distributed as dist
+
+    nb, ni = layout.interior.shape
+    n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
+    if nb % n_dev:
+        raise ValueError(f"{nb} interior blocks not divisible by {n_dev} devices")
+    if layout.krylov_rank:
+        raise ValueError(
+            "sharded structured solve requires an exact block-arrow pattern"
+        )
+    if method not in ("auto", "lax", "unrolled"):
+        raise ValueError(
+            f"unknown method {method!r}; use 'auto', 'lax' or 'unrolled'"
+        )
+    if method == "unrolled":
+        raise NotImplementedError(
+            "method='unrolled' works around TPU XLA expanders and is not "
+            "ported (ROADMAP queue 1, left out on purpose)"
+        )
+    group = mesh.get_group(axis)
+    interior_np = np.asarray(layout.interior, dtype=np.int64)
+    L_cols = int(layout.n_cols) or int(interior_np.size + layout.reduced.size)
+    has_pad = bool((interior_np >= L_cols).any())
+    my_interior_np = interior_np.reshape(n_dev, nb // n_dev, ni)[mesh.get_local_rank(axis)]
+    my_interior_t = torch.as_tensor(my_interior_np)
+    reduced_t = torch.as_tensor(np.asarray(layout.reduced, dtype=np.int64))
+    pad_t = torch.as_tensor(my_interior_np >= L_cols)
+
+    def _blk_solve(L_i, sc_i, B):
+        Bs = B * sc_i[:, :, None]
+        t = torch.linalg.solve_triangular(L_i, Bs, upper=False)
+        X = torch.linalg.solve_triangular(L_i.mT, t, upper=True)
+        return X * sc_i[:, :, None]
+
+    def solve(K, rhs):
+        dev = K.device
+        my_interior, reduced = my_interior_t.to(dev), reduced_t.to(dev)
+        n = rhs.shape[0]
+        if has_pad:
+            # zero-extend by one phantom row and column (the layout's
+            # phantom index is n_cols): phantom gathers read 0 where JAX
+            # would clamp, and phantom scatters land in the extra slot
+            K = torch.nn.functional.pad(K, (0, 1, 0, 1))
+            rhs = torch.nn.functional.pad(rhs, (0, 1))
+        K_ii = K[my_interior[:, :, None], my_interior[:, None, :]]
+        K_ir = K[my_interior[:, :, None], reduced[None, None, :]]
+        b_i = rhs[my_interior]
+        if has_pad:
+            # padded slots need the unit pivot before equilibration (a zero
+            # diagonal would nan the Cholesky)
+            pad = pad_t.to(device=dev, dtype=K.dtype)
+            K_ii = K_ii + torch.eye(ni, dtype=K.dtype, device=dev) * pad[:, :, None]
+
+        sc_i = torch.rsqrt(
+            torch.clamp_min(torch.diagonal(K_ii, dim1=1, dim2=2), 1e-30)
+        )
+        L_i = chol_nan(K_ii * sc_i[:, :, None] * sc_i[:, None, :])
+        X_ir = _blk_solve(L_i, sc_i, K_ir)
+        x_bi = _blk_solve(L_i, sc_i, b_i[:, :, None])[:, :, 0]
+
+        # partial Schur contributions; ONE all_reduce pair crosses ranks
+        S_part = torch.einsum("bik,bil->kl", K_ir, X_ir)
+        r_part = torch.einsum("bik,bi->k", K_ir, x_bi)
+        dist.all_reduce(S_part, group=group)
+        dist.all_reduce(r_part, group=group)
+        S = K[reduced[:, None], reduced[None, :]] - S_part
+        r_red = rhs[reduced] - r_part
+
+        sc_r = torch.rsqrt(torch.clamp_min(torch.diagonal(S), 1e-30))
+        L_r = chol_nan(S * sc_r[:, None] * sc_r[None, :])
+        t = torch.linalg.solve_triangular(L_r, (sc_r * r_red)[:, None], upper=False)
+        x_r = sc_r * torch.linalg.solve_triangular(L_r.mT, t, upper=True)[:, 0]
+
+        x_i = x_bi - torch.einsum("bik,k->bi", X_ir, x_r)
+        x_local = torch.zeros_like(rhs)
+        x_local[my_interior.reshape(-1)] = x_i.reshape(-1)
+        # sum the ranks' interior pieces; add the (replicated) reduced part once
+        dist.all_reduce(x_local, group=group)
+        x = x_local.index_put((reduced,), x_r)
+        return x[:n]
 
     return solve

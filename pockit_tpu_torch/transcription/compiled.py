@@ -25,17 +25,18 @@ import torch
 from torch.func import grad, hessian, jacrev
 
 from pockit_tpu_torch.base.bc import BcType
-from pockit_tpu_torch.base.expr import is_transform_wrapped
+from pockit_tpu_torch.base.expr import host_constant, is_cacheable
 
 
 class _ConstCache:
     """Numpy constants cast once per (dtype, device) instead of on every
     evaluation (a host-to-device copy each time on the card).
 
-    A tensor created inside ``torch.func.grad`` / ``jvp`` is used once and
-    not cached (:func:`~pockit_tpu_torch.base.expr.is_transform_wrapped`);
-    the solver's first evaluation of every function runs under ``vmap``
-    alone, which caches."""
+    Each is made outside every ``torch.func`` level
+    (:func:`~pockit_tpu_torch.base.expr.host_constant`), so one made inside
+    ``grad`` / ``jvp`` is cached too; one made while ``torch.export``
+    traces is used once and not cached
+    (:func:`~pockit_tpu_torch.base.expr.is_cacheable`)."""
 
     def __init__(self, **arrays):
         self._np = arrays
@@ -47,8 +48,8 @@ class _ConstCache:
         if t is None:
             a = self._np[name]
             dt = like.dtype if np.issubdtype(a.dtype, np.floating) else None
-            t = torch.as_tensor(a, dtype=dt, device=like.device)
-            if not is_transform_wrapped(t):
+            t = host_constant(a, dtype=dt, device=like.device)
+            if is_cacheable(t):
                 self._t[key] = t
         return t
 

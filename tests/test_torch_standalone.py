@@ -28,7 +28,8 @@ import pockit_tpu_torch.lobatto as port_lobatto
 import pockit_tpu_torch.numerics as port_num
 from pockit_tpu_torch import interop
 from pockit_tpu_torch.optimizer import ipm, ipopt, scipy
-from pockit_tpu_torch.parallel import homotopy_sweep, solve_refine_batch
+from pockit_tpu_torch.parallel import homotopy_sweep, instance_mesh, solve_refine_batch
+from pockit_tpu_torch.utils import aot
 from pockit_tpu_torch.transcription.error import make_error_stats
 
 from test_torch_frontend import build_lqr
@@ -44,7 +45,9 @@ assert {"pockit_tpu_torch.optimizer.ipopt", "pockit_tpu_torch.optimizer.scipy",
         "pockit_tpu_torch.parallel.homotopy", "pockit_tpu_torch.utils.profiling",
         "pockit_tpu_torch.examples.mpc_sweep", "pockit_tpu_torch.examples.lqr",
         "pockit_tpu_torch.examples.brachistochrone",
-        "pockit_tpu_torch.examples.goddard_ascent"} <= set(names), names
+        "pockit_tpu_torch.examples.goddard_ascent", "pockit_tpu_torch.parallel.distributed",
+        "pockit_tpu_torch.parallel.sharding", "pockit_tpu_torch.utils.aot",
+        "pockit_tpu_torch.examples.serving_aot"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "kernel_ab"):
@@ -152,7 +155,8 @@ class _StopAtDevice(torch.overrides.TorchFunctionMode):
                                    "default_runtime", "inputs_from_numpy", "objective",
                                    "gradient", "constraints", "jacobian", "hessian",
                                    "nlp_callbacks", "error_stats", "solve_refine_batch",
-                                   "ipopt_solve", "scipy_solve", "homotopy_sweep"])
+                                   "ipopt_solve", "scipy_solve", "homotopy_sweep",
+                                   "export_batch_solver"])
 def test_entry_points_default_to_the_card(entry):
     system, phase = build_lqr(port_lobatto, 4, 5)
     guess = [port_lobatto.constant_guess(phase, 0), [0.0]]
@@ -177,6 +181,7 @@ def test_entry_points_default_to_the_card(entry):
         "scipy_solve": lambda: scipy.solve(system, guess),
         "homotopy_sweep": lambda: homotopy_sweep(
             system, z0, [(np.tile(c.phases[0].fixed_vals, (3, 1)),)]),
+        "export_batch_solver": lambda: aot.export_batch_solver(system, 3),
     }[entry]
     watch = _StopAtDevice()
     with watch, pytest.raises(LookupError):
@@ -186,3 +191,30 @@ def test_entry_points_default_to_the_card(entry):
         # no card: asking for one raises PyTorch's own error, no fallback
         with pytest.raises((RuntimeError, AssertionError)):
             call()
+
+
+def test_instance_mesh_defaults_to_the_card(monkeypatch):
+    """With no process group, ``instance_mesh()`` makes its one-rank group on
+    the card (NCCL), on the card the process has chosen (it sets none);
+    with no card it raises before making any group."""
+    import torch.distributed as dist
+
+    import pockit_tpu_torch.parallel.distributed as port_dist
+
+    asked = []
+
+    def init_process_group(backend, **kw):
+        asked.append(backend)
+        raise LookupError("stopped at the group")
+
+    monkeypatch.setattr(port_dist.torch.cuda, "init", lambda: asked.append("init"))
+    monkeypatch.setattr(port_dist.torch.cuda, "set_device", lambda d: asked.append(("set_device", d)))
+    monkeypatch.setattr(port_dist.dist, "init_process_group", init_process_group)
+    with pytest.raises(LookupError):
+        instance_mesh()
+    assert asked == ["init", "nccl"] and not dist.is_initialized()
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            instance_mesh()
+        assert not dist.is_initialized()
