@@ -93,8 +93,29 @@ exits non-zero):
    load of the same bytes (deserialized anew) bit for bit alike; and a float64 B=1024 artifact
    against the live solve (obj rtol 1e-12, z atol 1e-10).
 
-The runs of phases 5-8 go four at a time, each in a process of its own
-with its own launch counts: their IPM loops are bound by the host.
+11. the LOQO barrier rule, the unrolled block core and the native nodes
+   (b and d after phase 10, a and c as two runs of the pool of phases 5-8):
+   a. the five gates of
+   ``tools/compare_mu.py`` (the LQR, the brachistochrone, the bang-bang
+   double integrator, the 15x8 LGL orbit, the 3-phase Goddard), one lane
+   each in float64 at tol 1e-8 under ``auto``, for each of monotone,
+   adaptive and mehrotra: iterations, status, objective and launches per
+   kernel (no run raises; where adaptive and monotone both converge,
+   objectives within 1e-6; the adaptive LQR launches all three kernels);
+   b. phase 4's bench batch under ``mu_strategy="adaptive"`` (one warm-up,
+   one timed batch) beside phase 4's monotone figures, gated on phase 4's
+   parity; c. the unrolled block core on the K batches of the LQR, the
+   Goddard and the 40x10 orbit at a random point (each lane its own
+   diagonal scaling), at B=1024 and the first 64 lanes alone, in both
+   types: every lane bit for bit alike at both sizes, within 1e-9 of the
+   lax core in float64, lax's own invariance printed; then the Goddard at
+   B=64 in float64 on the block path with each core (phase 6's float64
+   gates); d. whether the port's C++ node library loaded, its build
+   seconds, and its nodes against the numpy path and ``leggauss``.
+
+The runs of phases 5-8, 11a and 11c go four at a time, each in a process
+of its own with its own launch counts: their IPM loops are bound by the
+host.
 
 ``--first-pass GATE`` runs only a float32 gate's first pass (the tool's
 first-pass options, no drain) on the first ``--lanes`` lanes of its
@@ -113,7 +134,8 @@ batch; under ``"sweep"`` the same at each padded shape of each of phase
 7's three sweeps, with its launches in that sweep; under ``"mpc"`` its launches per cold
 solve and per replan of phase 9a in each type; under ``"sharded"`` its
 launches in phase 10a on one rank in each type and on each of the two
-ranks, and in 10c's first drained solve from the artifacts. The last line is ``{"ok": true,
+ranks, and in 10c's first drained solve from the artifacts; under
+``"barrier"`` its launches in each solve of 11a and per batch of 11b. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -499,12 +521,14 @@ def pinned_control_error(radau, system, z0):
     return max(float(np.max(np.abs(value[0].u[0] - U_MAX))), float(np.max(np.abs(value[2].u[0]))))
 
 
-def gate_run(name, run, B, device="cuda"):
+def gate_run(name, run, B, device="cuda", block_core="auto", phase=None):
     """One run of a configuration of tools/bench_gates.py through the
     port's ``solve_batch_drained`` on ``B`` lanes (drain rounds of B/8
     stragglers, as the tool): ``run`` is "f64" or "f32" through the kernels
-    (on the CPU, their plain versions) or "f32_block" through the plain
-    block core. Raises on a failed gate; returns the run's figures."""
+    (on the CPU, their plain versions) or "f64_block" / "f32_block" through
+    the plain block core of ``block_core``. Raises on a failed gate;
+    returns the run's figures, printed as ``phase <phase>`` (by default 5
+    for the orbit, 6 for Goddard)."""
     import dataclasses
 
     import torch
@@ -521,14 +545,14 @@ def gate_run(name, run, B, device="cuda"):
     bc = draw(system.compiled, B, np.random.default_rng(0))
     padded = GATE_SHAPES[name][0]
     on_card = torch.device(device).type == "cuda"
-    dtype = torch.float64 if run == "f64" else torch.float32
-    if run == "f64":
+    dtype = torch.float64 if run.startswith("f64") else torch.float32
+    if dtype == torch.float64:
         fast = IPOptions(tol=1e-7, max_iter=60, refine_steps=3)
     else:
         fast = IPOptions(tol=tol32, max_iter=60, refine_steps=3, mu_strategy=mu32,
                          delta_w_min=dwmin32)
-    kkt = "block" if run == "f32_block" else ("auto" if on_card else "pallas")
-    fast = dataclasses.replace(fast, kkt_solver=kkt)
+    kkt = "block" if run.endswith("_block") else ("auto" if on_card else "pallas")
+    fast = dataclasses.replace(fast, kkt_solver=kkt, block_core=block_core)
     drain = dataclasses.replace(fast, max_iter=120)
     z0 = torch.as_tensor(np.tile(x0, (B, 1)), dtype=dtype, device=device)
     bc_t = tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in bc)
@@ -546,7 +570,7 @@ def gate_run(name, run, B, device="cuda"):
     shapes = {k: sorted(v) for k, v in cuda_kkt.LAUNCH_SHAPES.items()}
     z_np = z.double().cpu().numpy()
     rec = dict(
-        gate=name, run=run, batch=B, kkt_solver=kkt, tol=fast.tol,
+        gate=name, run=run, batch=B, kkt_solver=kkt, block_core=block_core, tol=fast.tol,
         mu_strategy=fast.mu_strategy, delta_w_min=fast.delta_w_min,
         converged_frac=float(np.mean(status == 0)), first_pass_frac=float(np.mean(first)),
         mean_iters=float(np.mean(iters)), lane0_status=int(status[0]),
@@ -557,21 +581,22 @@ def gate_run(name, run, B, device="cuda"):
     )
     if name == "goddard":
         rec["lane0_pinned_err"] = pinned_control_error(radau, system, z_np[0])
-    print(f"phase {5 if name == 'orbit' else 6} {name} {run}: " + json.dumps(rec), flush=True)
+    phase = phase or (5 if name == "orbit" else 6)
+    print(f"phase {phase} {name} {run}: " + json.dumps(rec), flush=True)
     if not rec["finite"]:
         raise AssertionError(f"{name} {run}: non-finite results")
     if kkt != "block" and (min(launches.values()) == 0
                            or any(shapes[k] != [padded] for k in shapes)):
         raise AssertionError(f"{name} {run}: the kernels did not all launch at {padded}: "
                              f"{launches} {shapes}")
-    tol_obj = {"orbit": 5e-3, "goddard": 1e-3}[name] if run == "f64" else tol_obj32
+    tol_obj = {"orbit": 5e-3, "goddard": 1e-3}[name] if dtype == torch.float64 else tol_obj32
     if rec["parity_err_lane0"] > tol_obj:
         raise AssertionError(f"{name} {run}: lane 0 {obj_name} {rec['lane0_objective']} is "
                              f"more than {tol_obj} from {obj_star}")
     if name == "goddard" and rec["lane0_pinned_err"] > 1e-6:
         raise AssertionError(f"{name} {run}: pinned controls off by {rec['lane0_pinned_err']}")
-    if run == "f64" and rec["converged_frac"] < 0.99:
-        raise AssertionError(f"{name} f64: converged_frac {rec['converged_frac']} < 0.99")
+    if dtype == torch.float64 and rec["converged_frac"] < 0.99:
+        raise AssertionError(f"{name} {run}: converged_frac {rec['converged_frac']} < 0.99")
     return rec
 
 
@@ -841,7 +866,8 @@ def f1_run(device="cuda"):
 # orbit's float64 run is bound by its factor, the rest by the host)
 POOL_RUNS = (("gate", "orbit", "f64"), ("sweep", "bang_bang"), ("gate", "goddard", "f32_block"),
              ("gate", "goddard", "f32"), ("gate", "orbit", "f32"), ("sweep", "f64"),
-             ("sweep", "f32"), ("f1",), ("gate", "orbit", "f32_block"), ("gate", "goddard", "f64"))
+             ("sweep", "f32"), ("f1",), ("gate", "orbit", "f32_block"), ("gate", "goddard", "f64"),
+             ("mu",), ("unrolled",))
 
 
 def _pool_init():
@@ -856,17 +882,21 @@ def _pool_run(key, B, device):
         return gate_run(*args, B, device)
     if kind == "sweep":
         return sweep_run(*args, device)
+    if kind == "mu":
+        return mu_run(device)
+    if kind == "unrolled":
+        return unrolled_run(device)
     return f1_run(device)
 
 
 def phase_pool(B, device="cuda", workers=4):
-    """Phases 5 to 8: every run of :data:`POOL_RUNS`, ``workers`` at a time,
+    """Phases 5 to 8 and 11a, 11c: every run of :data:`POOL_RUNS`, ``workers`` at a time,
     each in a process of its own (spawned; the IPM loops are bound by the
     host, so runs side by side share the card and use more of the host's
     cores); each run resets and reads its own kernel launch counts. Then
     the float32 kernels against the block core of each gate. Raises on a
     failed run (after the runs in flight end; the pool's processes are
-    stopped); returns ``{key: figures}``."""
+    stopped); returns the gates', the sweeps', F1's and phase 11's figures."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -891,7 +921,8 @@ def phase_pool(B, device="cuda", workers=4):
         if gap < -0.01:
             raise AssertionError(f"{gate} f32: the kernels converged fewer lanes than the block "
                                  f"core by more than 1%")
-    return gates, {key[1]: rec for key, rec in done.items() if key[0] == "sweep"}, done[("f1",)]
+    return (gates, {key[1]: rec for key, rec in done.items() if key[0] == "sweep"}, done[("f1",)],
+            {"mu": done[("mu",)], "unrolled": done[("unrolled",)]})
 
 
 # ---------------------------------------------------------------------------
@@ -1429,26 +1460,15 @@ def structured_inputs(device="cuda", mesh=40, num_point=10):
     """10b's system: the Radau orbit's condensed K at a random point, built
     as ``tests/test_parallel/test_sharded_structured.py`` builds it, and
     its layout."""
-    import torch
-
     import pockit_tpu_torch.radau as radau
     from pockit_tpu_torch.solver.structured import structured_layout
 
     system, _ = build_orbit(radau, mesh, num_point)
-    compiled = system.compiled
-    rng = np.random.default_rng(0)
-    z = rng.uniform(0.5, 1.2, system.L)
-    lam = rng.normal(0, 1, compiled.m)
-    W = compiled.hessian(z, lam, 1.0, device=device).cpu().numpy()
-    J = compiled.jacobian(z, device=device).cpu().numpy()
-    K = W + np.diag(rng.uniform(0.1, 5.0, system.L)) + (J.T * rng.uniform(0.1, 10.0, compiled.m)) @ J
-    ev = np.linalg.eigvalsh(K)
-    if ev.min() < 1e-6:
-        K = K + (1e-3 - min(ev.min(), 0)) * np.eye(system.L)
+    K, rhs = random_condensed_K(system, device)
     layout = structured_layout(system)
     if layout is None or layout.krylov_rank:
         raise AssertionError("10b: the orbit's layout is not an exact block-arrow pattern")
-    return K, rng.normal(size=system.L), layout
+    return K, rhs, layout
 
 
 def structured_run(K, rhs, layout, device="cuda"):
@@ -1604,6 +1624,301 @@ def phase_multidevice(device="cuda", B=SHARD_B, f64_B=ARTIFACT_F64_B, orbit=(40,
     return dict(sharded=rec_a, structured=rec_b, artifact=rec_c)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LOQO barrier rule, the unrolled block core, the native nodes
+# ---------------------------------------------------------------------------
+
+MU_STRATEGIES = ("monotone", "adaptive", "mehrotra")
+UNROLLED_B = (1024, 64)  # 11c: each K batch, and its first 64 lanes alone
+UNROLLED_SOLVE_B = 64
+
+
+def mu_gate_problems():
+    """The five gates of ``tools/compare_mu.py``, built with the port: name
+    -> a constructor of ``(system, guess)``."""
+    import sympy as sp
+
+    import pockit_tpu_torch.lobatto as lobatto
+    import pockit_tpu_torch.radau as radau
+
+    def lqr():
+        return lqr_problem()[:2]
+
+    def brach():
+        system = lobatto.System(0)
+        phase = system.new_phase(["x", "y", "v"], ["theta"])
+        x, y, v = phase.x
+        (theta,) = phase.u
+        phase.set_dynamics([v * sp.sin(theta), -v * sp.cos(theta), 9.8 * sp.cos(theta)])
+        phase.set_integral([1])
+        phase.set_boundary_condition([0, 0, 0], [2, -2, None], 0, None)
+        phase.set_discretization(10, 8)
+        system.set_phase([phase])
+        system.set_objective(phase.I[0])
+        guess = lobatto.linear_guess(phase, 0.5)
+        guess.t_f = 1.0
+        return system, guess
+
+    def bang():
+        system = radau.System(0)
+        phase = system.new_phase(["x", "v"], ["u"])
+        x, v = phase.x
+        (u,) = phase.u
+        phase.set_dynamics([v, u])
+        phase.set_integral([1])
+        phase.set_phase_constraint([u, phase.t], [-1.0, 0.5], [1.0, 6.0],
+                                   bang_bang_control=[True, False])
+        phase.set_boundary_condition([0.0, 0.0], [1.0, 0.0], 0.0, None)
+        phase.set_discretization(3, 6)
+        system.set_phase([phase])
+        system.set_objective(phase.I[0])
+        guess = radau.linear_guess(phase, 0.5)
+        guess.t_f = 3.0
+        return system, guess
+
+    return {"lqr": lqr, "brach": brach, "bang": bang,
+            "orbit": lambda: build_orbit(lobatto, 15, 8),
+            "goddard": lambda: build_goddard(radau)}
+
+
+def mu_run(device="cuda"):
+    """11a: each gate of ``tools/compare_mu.py`` solved once per barrier rule,
+    one lane, float64, tol 1e-8, ``kkt_solver="auto"``; iterations, status,
+    objective and launches per kernel. Gates: no run raises; where the
+    adaptive and monotone rules both converge, objectives within 1e-6
+    (relative to max(1, |objective|)); on the card, the adaptive LQR
+    launches all three kernels."""
+    import torch
+
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.solver import IPOptions, cuda_kkt
+
+    recs = {}
+    for name, build in mu_gate_problems().items():
+        for strategy in MU_STRATEGIES:
+            system, guess = build()
+            cuda_kkt.reset_launches()
+            t0 = time.perf_counter()
+            _, info = ipm.solve(system, guess, IPOptions(tol=1e-8, mu_strategy=strategy),
+                                device=device, dtype=torch.float64)
+            rec = dict(iterations=int(info["iterations"]), status=int(info["status"]),
+                       objective=float(info["obj_val"]), kkt_solver=info["kkt_solver"],
+                       wall_s=time.perf_counter() - t0, launches=dict(cuda_kkt.LAUNCHES))
+            recs.setdefault(name, {})[strategy] = rec
+            print(f"phase 11a {name} {strategy}: " + json.dumps(rec), flush=True)
+    for name, r in recs.items():
+        ad, mono = r["adaptive"], r["monotone"]
+        if ad["status"] == 0 == mono["status"] and \
+                abs(ad["objective"] - mono["objective"]) > 1e-6 * max(1.0, abs(mono["objective"])):
+            raise AssertionError(f"11a {name}: adaptive {ad['objective']} against monotone "
+                                 f"{mono['objective']}")
+    if torch.device(device).type == "cuda" and min(recs["lqr"]["adaptive"]["launches"].values()) == 0:
+        raise AssertionError(f"11a: the adaptive LQR did not launch every kernel: {recs['lqr']}")
+    return recs
+
+
+def random_condensed_K(system, device="cuda", seed=0, around=None):
+    """A system's condensed K at a random point, as
+    ``tests/test_parallel/test_sharded_structured.py`` builds it (W + a
+    positive diagonal + J^T D J, shifted to SPD), and a right-hand side.
+    The point is U(0.5, 1.2) in every entry, or with ``around`` (a point of
+    the problem) that point scaled entrywise by U(0.99, 1.01)."""
+    compiled = system.compiled
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0.5, 1.2, system.L) if around is None else around * rng.uniform(0.99, 1.01, system.L)
+    lam = rng.normal(0, 1, compiled.m)
+    W = compiled.hessian(z, lam, 1.0, device=device).cpu().numpy()
+    J = compiled.jacobian(z, device=device).cpu().numpy()
+    K = W + np.diag(rng.uniform(0.1, 5.0, system.L)) + (J.T * rng.uniform(0.1, 10.0, compiled.m)) @ J
+    ev = np.linalg.eigvalsh(K)
+    if ev.min() < 1e-6:
+        K = K + (1e-3 - min(ev.min(), 0)) * np.eye(system.L)
+    return K, rng.normal(size=system.L)
+
+
+def block_batch(system, B, dtype, device="cuda", around=None):
+    """11c's inputs: ``system``'s condensed K at a random point
+    (:func:`random_condensed_K`, ``around``) in the block core's storage (phantom
+    slots of a ragged layout read 0, with a unit pivot), and ``B`` lanes of
+    it, lane l scaled as D_l K D_l by its own positive diagonal
+    exp(0.05 N(0, 1)) (SPD, the same pattern), each with a normal
+    right-hand side; ``default_rng(1)``. Returns the layout's
+    ``(interior, reduced, n)`` and the lanes' ``(K_ii, K_ir, K_rr, rhs)``."""
+    import torch
+
+    from pockit_tpu_torch.solver.structured import structured_layout
+
+    layout = structured_layout(system)
+    interior, reduced = np.asarray(layout.interior, np.int64), np.asarray(layout.reduced, np.int64)
+    K, _ = random_condensed_K(system, device, around=around)
+    n = K.shape[0]
+    K_ext = np.pad(K, ((0, 1), (0, 1)))
+    K_ii = K_ext[interior[:, :, None], interior[:, None, :]] + \
+        np.eye(interior.shape[1]) * (interior >= n)[:, :, None]
+    K_ir = K_ext[interior[:, :, None], reduced[None, None, :]]
+    K_rr = K[np.ix_(reduced, reduced)]
+    rng = np.random.default_rng(1)
+    d = np.exp(0.05 * rng.normal(size=(B, n + 1)))
+    d[:, n] = 1.0
+    rhs = rng.normal(size=(B, n))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    d_i, d_r = t(d[:, interior]), t(d[:, reduced])
+    K_ii = d_i[..., :, None] * t(K_ii) * d_i[..., None, :]
+    K_ir = d_i[..., :, None] * t(K_ir) * d_r[:, None, None, :]
+    K_rr = d_r[:, :, None] * t(K_rr) * d_r[:, None, :]
+    return (interior, reduced, n), (K_ii, K_ir, K_rr, t(rhs))
+
+
+def core_pass(core, blocks, lanes, device):
+    """One factor and one apply of ``core`` on the first ``lanes`` lanes of
+    ``blocks``; returns ``(x, p_min, p_max, factors...)`` and the seconds."""
+    import torch
+
+    factor, apply_ = core
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    K_ii, K_ir, K_rr, rhs = (b[:lanes] for b in blocks)
+    sync()
+    t0 = time.perf_counter()
+    factors, p_min, p_max = factor(K_ii, K_ir, K_rr)
+    x = apply_(factors, rhs)
+    sync()
+    return (x, p_min, p_max) + tuple(factors), time.perf_counter() - t0
+
+
+def unrolled_run(device="cuda", sizes=UNROLLED_B, solve_B=UNROLLED_SOLVE_B):
+    """11c: the unrolled block core against itself across batch sizes and
+    against the lax core. The K batches of the LQR 10x10 LGL, the 3-phase
+    Goddard and the 40x10 Radau orbit (:func:`block_batch`), factored and
+    applied at ``sizes[0]`` lanes and at the first ``sizes[1]`` alone, in
+    float64 and float32. Gates: the unrolled core gives every lane the same
+    bits at both sizes; in float64 it agrees with lax within 1e-9
+    (relative to each lane's largest entry). Lax's own invariance is
+    printed. Then the Goddard at ``solve_B`` lanes, float64, on the block
+    path with each core (gated as phase 6's float64 run), wall and
+    iterations side by side."""
+    import torch
+
+    import pockit_tpu_torch.radau as radau
+    from pockit_tpu_torch.optimizer._common import preprocess
+    from pockit_tpu_torch.solver.structured import make_block_arrow_core
+
+    big, small = sizes
+    goddard, guess = build_goddard(radau)
+    # the Goddard's point is drawn around its guess: at U(0.5, 1.2) the drag
+    # exp(-500 (h - 1)) puts 1e225 into K (condition number 9e15)
+    systems = {"lqr": (lqr_problem()[0], None), "goddard": (goddard, preprocess(goddard, guess)[0]),
+               "orbit": (build_orbit(radau)[0], None)}
+    recs = {}
+    for name, (system, around) in systems.items():
+        for dtype in (torch.float64, torch.float32):
+            (interior, reduced, n), blocks = block_batch(system, big, dtype, device, around)
+            out = {}
+            for method in ("unrolled", "lax"):
+                core = make_block_arrow_core(interior, reduced, n, method=method)
+                core_pass(core, blocks, small, device)  # warm-up
+                res_big, s_big = core_pass(core, blocks, big, device)
+                res_small, s_small = core_pass(core, blocks, small, device)
+                same = all(torch.equal(a[:small], b) for a, b in zip(res_big, res_small))
+                diff = max(float((a[:small] - b).abs().max()) for a, b in zip(res_big, res_small))
+                out[method] = dict(seconds=[s_big, s_small], bitwise=same, max_abs_diff=diff,
+                                   x=res_big[0], finite=bool(torch.isfinite(res_big[0]).all()))
+                del res_big, res_small
+            x_u, x_l = out["unrolled"].pop("x"), out["lax"].pop("x")
+            rel = float(((x_u - x_l).abs().amax(-1) / x_l.abs().amax(-1)).max())
+            dt = str(dtype).replace("torch.", "")
+            recs[f"{name}_{dt}"] = rec = dict(
+                shape=[int(interior.shape[0]), int(interior.shape[1]), len(reduced)],
+                lanes=[big, small], unrolled=out["unrolled"], lax=out["lax"],
+                max_rel_unrolled_vs_lax=rel)
+            print(f"phase 11c core {name} {dt}: " + json.dumps(rec), flush=True)
+            if not (out["unrolled"]["bitwise"] and out["unrolled"]["finite"]):
+                raise AssertionError(f"11c {name} {dt}: the unrolled core is not batch-invariant")
+            if dtype == torch.float64 and rel > 1e-9:
+                raise AssertionError(f"11c {name} {dt}: unrolled off lax by {rel:.3e}")
+            del blocks, x_u, x_l
+    solves = {core: gate_run("goddard", "f64_block", solve_B, device, block_core=core, phase="11c")
+              for core in ("unrolled", "lax")}
+    return dict(cores=recs, goddard=solves)
+
+
+def native_run():
+    """11d: whether the port's C++ node library loaded and its build
+    seconds; where it did, its LGL and LGR nodes for 2-64 points against
+    the numpy path (nodes 1e-13, weights 2e-13: the C++ LGR nodes get no
+    Newton polish, and the JAX package's own library sits 1.52e-13 from the
+    numpy path at 39 points) and its Gauss nodes against
+    ``numpy.polynomial.legendre.leggauss`` (1e-13)."""
+    from pockit_tpu_torch.numerics import native, quadrature
+
+    info = native.build_info()
+    rec = dict(loaded=info["loaded"], build_s=info["seconds"])
+    if info["loaded"]:
+        errs = {"lgl": [0.0, 0.0], "lgr": [0.0, 0.0], "gauss": [0.0, 0.0]}
+        for n in range(2, 65):
+            for fam, want in (("lgl", quadrature._lgl_numpy(n)), ("lgr", quadrature._lgr_numpy(n)),
+                              ("gauss", np.polynomial.legendre.leggauss(n))):
+                got = getattr(native, fam)(n)
+                errs[fam] = [max(e, float(np.abs(g - w).max())) for e, g, w in zip(errs[fam], got, want)]
+        rec["max_abs_nodes_weights"] = errs
+    print("phase 11d native nodes: " + json.dumps(rec), flush=True)
+    if info["loaded"] and (max(e[0] for e in errs.values()) > 1e-13 or errs["gauss"][1] > 1e-13
+                           or max(errs["lgl"][1], errs["lgr"][1]) > 2e-13):
+        raise AssertionError(f"11d: native nodes off the numpy path: {errs}")
+    return rec
+
+
+def bench_batches(system, x0, B, opts_fast, opts_drain, reps, draw, rng):
+    """Phase 4's drained LQR batches (``bench.py``'s two-stage solve) on the
+    card at ``B`` lanes: one warm-up, then ``reps`` timed batches, each on a
+    fresh x(0) draw (``draw(rng, B, dtype) -> (bc, bc on the card)``);
+    returns their figures (launches summed over the timed batches)."""
+    import torch
+
+    from pockit_tpu_torch.optimizer import ipm
+    from pockit_tpu_torch.solver import cuda_kkt
+
+    x0b = torch.as_tensor(np.tile(x0, (B, 1)), dtype=torch.float32, device="cuda")
+
+    def solve_all(bc_t):
+        return ipm.solve_batch_drained(
+            system, x0b, bc_overrides=(bc_t,), optimizer_options=opts_drain,
+            first_pass_options=opts_fast, drain_frac=8, max_drain_rounds=4,
+            return_first_pass_mask=True,
+        )
+
+    t0 = time.perf_counter()
+    solve_all(draw(rng, B, torch.float32)[1])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    walls, convs, firsts, iters, parity = [], [], [], [], []
+    launches = {k: 0 for k in cuda_kkt.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        bc, bc_t = draw(rng, B, torch.float32)
+        cuda_kkt.reset_launches()
+        t0 = time.perf_counter()
+        status, obj, it, z, done1 = solve_all(bc_t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for k, v in cuda_kkt.LAUNCHES.items():
+            launches[k] += v
+        ok = status == 0
+        convs.append(float(ok.mean()))
+        firsts.append(float(done1.mean()))
+        iters.append(float(it.mean()))
+        parity.append(float(np.max(np.abs(obj - J1 * bc[:, 0] ** 2)[ok], initial=0.0)))
+        if not np.isfinite(z.cpu().numpy()).all():
+            raise AssertionError("non-finite primal solution")
+    wall = float(np.median(walls))
+    return dict(
+        batch=B, reps=reps, mu_strategy=opts_drain.mu_strategy,
+        converged_frac=float(np.mean(convs)), first_pass_frac=float(np.mean(firsts)),
+        mean_iters=float(np.mean(iters)), max_objective_parity_error=float(np.max(parity)),
+        wall_s_per_batch=wall, walls=walls, solves_per_s=B / wall, warmup_s=warm_s,
+        max_memory_allocated=int(torch.cuda.max_memory_allocated()), launches=launches,
+    )
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed repetitions of phase 4")
@@ -1622,6 +1937,8 @@ def main():
         return
     started = time.perf_counter()
     seconds = {}
+
+    import dataclasses
 
     import torch
 
@@ -1715,48 +2032,10 @@ def main():
                           newton_residual_rtol=args.residual_rtol)
     opts_drain = IPOptions(tol=5e-6, max_iter=80, refine_steps=3, pallas_attempts=3,
                            newton_residual_rtol=args.residual_rtol)
-    x0b = torch.as_tensor(np.tile(x0, (B, 1)), dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(0)
-
-    def solve_all(bc_t):
-        return ipm.solve_batch_drained(
-            system, x0b, bc_overrides=(bc_t,), optimizer_options=opts_drain,
-            first_pass_options=opts_fast, drain_frac=8, max_drain_rounds=4,
-            return_first_pass_mask=True,
-        )
-
-    t0 = time.perf_counter()
-    solve_all(draw(rng, B, torch.float32)[1])
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    walls, convs, firsts, iters, parity = [], [], [], [], []
-    launches = {k: 0 for k in cuda_kkt.LAUNCHES}
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(args.reps):
-        bc, bc_t = draw(rng, B, torch.float32)
-        cuda_kkt.reset_launches()
-        t0 = time.perf_counter()
-        status, obj, it, z, done1 = solve_all(bc_t)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        for k, v in cuda_kkt.LAUNCHES.items():
-            launches[k] += v
-        ok = status == 0
-        convs.append(float(ok.mean()))
-        firsts.append(float(done1.mean()))
-        iters.append(float(it.mean()))
-        parity.append(float(np.max(np.abs(obj - J1 * bc[:, 0] ** 2)[ok], initial=0.0)))
-        if not np.isfinite(z.cpu().numpy()).all():
-            raise AssertionError("non-finite primal solution")
-    wall = float(np.median(walls))
-    metrics = dict(
-        batch=B, reps=args.reps, newton_residual_rtol=args.residual_rtol, converged_frac=float(np.mean(convs)),
-        first_pass_frac=float(np.mean(firsts)), mean_iters=float(np.mean(iters)),
-        max_objective_parity_error=float(np.max(parity)), wall_s_per_batch=wall,
-        walls=walls, solves_per_s=B / wall, warmup_s=warm_s,
-        max_memory_allocated=int(torch.cuda.max_memory_allocated()),
-        launches=launches, device=name, power_limit=smi,
-    )
+    metrics = bench_batches(system, x0, B, opts_fast, opts_drain, args.reps, draw, rng)
+    metrics.update(newton_residual_rtol=args.residual_rtol, device=name, power_limit=smi)
+    launches = metrics["launches"]
     print("phase 4 float32 bench: " + json.dumps(metrics), flush=True)
     if metrics["converged_frac"] < 0.99:
         raise AssertionError(f"converged_frac {metrics['converged_frac']} < 0.99")
@@ -1777,11 +2056,28 @@ def main():
     t4 = time.perf_counter()
     seconds["10"] = t4 - t9
 
-    # -- phases 5 to 8: the gates, the refine sweep, F1 -------------------------
+    # -- phase 11b, d: the bench batch under the LOQO rule, the native nodes ----
+    # (11a and 11c, single-lane solves and the unrolled core, run in the pool)
+    adaptive = bench_batches(
+        system, x0, B, dataclasses.replace(opts_fast, mu_strategy="adaptive"),
+        dataclasses.replace(opts_drain, mu_strategy="adaptive"), 1, draw, rng)
+    adaptive["phase_4_monotone"] = {k: metrics[k] for k in (
+        "converged_frac", "first_pass_frac", "mean_iters", "wall_s_per_batch", "solves_per_s")}
+    adaptive["phase_4_monotone"]["launches_per_batch"] = {k: v / args.reps for k, v in launches.items()}
+    print("phase 11b float32 bench, adaptive: " + json.dumps(adaptive), flush=True)
+    if adaptive["max_objective_parity_error"] > 5e-6:
+        raise AssertionError("11b: objective parity above the float32 gate 5e-6")
+    native_run()
+    t11 = time.perf_counter()
+    seconds["11b, 11d"] = t11 - t4
+
+    # -- phases 5 to 8, 11a, 11c: the gates, the refine sweep, F1; the barrier
+    # rules on compare_mu's gates, the unrolled core ----------------------------
     torch.cuda.empty_cache()  # the runs' processes need the card's memory
-    gates, sweeps, _ = phase_pool(args.gate_batch)
+    gates, sweeps, _, pooled = phase_pool(args.gate_batch)
+    barrier = pooled["mu"]
     t8 = time.perf_counter()
-    seconds["5-8"] = t8 - t4
+    seconds["5-8, 11a, 11c"] = t8 - t11
     sweep_kernels(sweeps)
     seconds["7 kernels"] = time.perf_counter() - t8
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()})
@@ -1846,6 +2142,14 @@ def main():
                 "two_ranks_float64": [r["launches"][k] for r in a["two_ranks"]["ranks"]],
                 "artifact_first_solve": multi["artifact"]["artifact"]["launches"][list(replaces).index(k)]}
 
+    def at_barrier(k):
+        """Kernel ``k`` in phase 11: its launches in each single-lane solve of
+        11a (gate, then barrier rule) and per batch of 11b (adaptive); 11c
+        runs no kernel."""
+        return {"11a": {gate: {mu: r["launches"][k] for mu, r in runs.items()}
+                        for gate, runs in barrier.items()},
+                "11b_adaptive_per_batch": adaptive["launches"][k]}
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": launches[k], "launches_per_batch": launches[k] / args.reps,
@@ -1856,7 +2160,7 @@ def main():
                    for gate in GATE_SHAPES for dt in (torch.float64, torch.float32)},
          "sweep": [at_sweep(k, run, padded) for run in ("f32", "f64", "bang_bang")
                    for padded in sweeps[run]["kernels"]],
-         "mpc": at_mpc(k), "sharded": at_sharded(k)}
+         "mpc": at_mpc(k), "sharded": at_sharded(k), "barrier": at_barrier(k)}
         for k in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -1,9 +1,9 @@
 """Host-side numerics: quadrature nodes/weights, Lagrange interpolation,
 mesh index layout.
 
-The port's own copy of ``pockit_tpu/numerics`` (its numpy path only).
-Everything here runs in float64 numpy on the host at problem-construction
-time.
+The port's own copy of ``pockit_tpu/numerics``, with its own copy of the
+C++ node library (:mod:`~pockit_tpu_torch.numerics.native`). Everything
+here runs in float64 on the host at problem-construction time.
 """
 
 from pockit_tpu_torch.numerics.layout import lr_c, lr_nc

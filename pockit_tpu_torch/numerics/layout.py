@@ -28,3 +28,9 @@ def lr_nc(num_point: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     num_point = np.asarray(num_point, dtype=np.int64)
     l = np.concatenate(([0], np.cumsum(num_point[:-1])))
     return l.astype(np.int64), np.cumsum(num_point).astype(np.int64)
+
+
+def scale_mesh(mesh) -> np.ndarray:
+    """Rescale arbitrary monotone mesh points to ``[0, 1]``."""
+    mesh = np.asarray(list(mesh), dtype=np.float64)
+    return (mesh - mesh[0]) / (mesh[-1] - mesh[0])

@@ -42,15 +42,25 @@ def _legderval(x: np.ndarray, n: int) -> np.ndarray:
 def xw_lgl(num_point: int) -> tuple[np.ndarray, np.ndarray]:
     """LGL nodes and quadrature weights on ``[-1, 1]``.
 
-    Golub-Welsch Jacobi-matrix eigenvalues plus a Newton polish (the
-    JAX package's numpy path; its optional native C++ path agrees to
-    ~1e-14 and is not carried over).
+    Computed by the port's C++ library (``csrc/colloc.cpp``, see
+    :mod:`~pockit_tpu_torch.numerics.native`) when available, else the
+    scipy/numpy path (:func:`_lgl_numpy`); both use Golub-Welsch
+    Jacobi-matrix eigenvalues and agree to ~1e-14 (weights of many LGR
+    points to ~2e-13: the C++ LGR nodes get no Newton polish).
 
     ``num_point == 1`` degenerates to the midpoint rule ``([0], [2])`` to
     match the reference's convention.
     """
     if num_point <= 0:
         raise ValueError("at least one interpolation point is required")
+    from pockit_tpu_torch.numerics import native
+
+    res = native.lgl(num_point)
+    return res if res is not None else _lgl_numpy(num_point)
+
+
+def _lgl_numpy(num_point: int) -> tuple[np.ndarray, np.ndarray]:
+    """The scipy/numpy path of :func:`xw_lgl`."""
     if num_point == 1:
         return np.array([0.0]), np.array([2.0])
     n = num_point - 1  # polynomial degree
@@ -74,9 +84,17 @@ def xw_lgl(num_point: int) -> tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def xw_lgr(num_point: int) -> tuple[np.ndarray, np.ndarray]:
     """Left LGR nodes (include -1, exclude +1) and quadrature weights on
-    ``[-1, 1]`` (see :func:`xw_lgl`)."""
+    ``[-1, 1]`` (native C++ when available, see :func:`xw_lgl`)."""
     if num_point <= 0:
         raise ValueError("at least one interpolation point is required")
+    from pockit_tpu_torch.numerics import native
+
+    res = native.lgr(num_point)
+    return res if res is not None else _lgr_numpy(num_point)
+
+
+def _lgr_numpy(num_point: int) -> tuple[np.ndarray, np.ndarray]:
+    """The scipy/numpy path of :func:`xw_lgr`."""
     if num_point == 1:
         return np.array([-1.0]), np.array([2.0])
     interior, _ = roots_jacobi(num_point - 1, 0.0, 1.0)

@@ -25,7 +25,8 @@ _OPTION_MAP = {
 }
 # IPOPT's mu_strategy=adaptive defaults to a Mehrotra-type probing oracle
 # (its mu_oracle option); the native equivalent is 'mehrotra'. The native
-# 'adaptive' value (the LOQO centrality rule) is not ported.
+# 'adaptive' value is the LOQO centrality rule, which measures worse than
+# monotone on the repo's gates, so it is not what IPOPT's name means here.
 _VALUE_MAP = {"mu_strategy": {"adaptive": "mehrotra"}}
 _IGNORED = {
     "print_level",

@@ -14,11 +14,13 @@ The port of ``pockit_tpu/solver/ipm.py``. Design, as in the reference:
   the block-arrow pattern gathered out of it (``solver/structured.py``).
 - **Wächter-Biegler filter line search** with second-order correction and
   a Gauss-Newton feasibility fallback.
-- **Barrier update**: the monotone Fiacco-McCormick ladder, or Mehrotra
+- **Barrier update**: the monotone Fiacco-McCormick ladder, Mehrotra
   probing (``mu_strategy="mehrotra"``): the factorization's first solve is
   the affine (mu = 0) step, whose complementarity retargets mu by the
   cubic rule; the centred and corrected right-hand side is then solved
-  against the same factors.
+  against the same factors; or the LOQO centrality rule
+  (``mu_strategy="adaptive"``): mu from the spread of the complementarity
+  products, every iteration, with no filter reset.
 
 **Batch-first.** Every state tensor carries a leading lane axis ``B``. The
 reference runs one lane's solve under ``jax.vmap``; a vmapped
@@ -216,11 +218,11 @@ def matmul_precision(precision: str):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-def _check_ported(opt: IPOptions):
-    if opt.mu_strategy not in ("monotone", "mehrotra"):
-        raise NotImplementedError(
-            f"mu_strategy={opt.mu_strategy!r} is not ported; only 'monotone' "
-            "and 'mehrotra' (ROADMAP queue 1, left out on purpose)"
+def _check_options(opt: IPOptions):
+    if opt.mu_strategy not in ("monotone", "mehrotra", "adaptive"):
+        raise ValueError(
+            f"unknown mu_strategy {opt.mu_strategy!r}; use 'monotone', "
+            "'mehrotra' or 'adaptive'"
         )
     if opt.kkt_solver not in ("auto", "block", "pallas", "dense", "structured"):
         raise ValueError(
@@ -285,7 +287,7 @@ def make_ip_solver(
     block paths).
     """
     opt = options
-    _check_ported(opt)
+    _check_options(opt)
     debug_trace, dump_kkt = _DEBUG_TRACE, _DUMP_KKT
     mehrotra = opt.mu_strategy == "mehrotra"
     mode = opt.kkt_solver
@@ -620,7 +622,25 @@ def make_ip_solver(
             active = ~(st.done | newly_done | blown)
 
             # -- barrier update -----------------------------------------
-            if mehrotra:
+            if opt.mu_strategy == "adaptive":
+                # LOQO centrality rule over the bounded entries: mu from
+                # the mean and the least complementarity product; lanes
+                # with no bounded entry keep theirs; the filter is kept
+                al, au, bl, bu = _bound_gaps(z, s)
+                has = torch.cat([has_zl, has_zu, has_cl, has_cu], -1)
+                comp_v = torch.where(
+                    has, torch.cat([al * w_l, au * w_u, bl * v_l, bu * v_u], -1), torch.nan
+                )
+                valid = ~torch.isnan(comp_v)
+                n_comp = valid.sum(-1)
+                avg = torch.nansum(comp_v, -1) / torch.clamp_min(n_comp, 1)
+                cmin = torch.where(valid, comp_v, torch.inf).amin(-1)
+                xi = torch.where(avg > 0, cmin / torch.clamp_min(avg, 1e-30), 1.0)
+                sigma = 0.1 * torch.clamp_max(0.05 * (1.0 - xi) / torch.clamp_min(xi, 1e-6), 2.0) ** 3
+                mu_ad = torch.clamp(sigma * avg, opt.tol / 10.0, opt.mu_init)
+                mu = torch.where(n_comp > 0, mu_ad, mu)
+                th_f, ph_f = st.th_f, st.ph_f
+            elif mehrotra:
                 # mu is retargeted after the affine probe below, which
                 # needs this iteration's factorization; the matrix is
                 # assembled at the state's mu and the filter is kept

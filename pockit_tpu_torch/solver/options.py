@@ -2,9 +2,7 @@
 
 The same dataclass as ``pockit_tpu/solver/options.py``: every field, default
 and accepted value is kept, so one options object describes a run of either
-package. Values the port does not implement raise ``NotImplementedError``
-when a solver is built (``solver/ipm.py``), naming the ROADMAP item that
-brings them.
+package.
 """
 
 from __future__ import annotations
@@ -28,7 +26,11 @@ class IPOptions:
     theta_mu: float = 1.5  # superlinear mu shrink exponent
     kappa_eps: float = 10.0  # barrier subproblem tolerance = kappa_eps * mu
     # barrier update strategy: "monotone" (Fiacco-McCormick ladder, the
-    # default and the only one ported), "mehrotra" or "adaptive"
+    # default), "mehrotra" (affine-scaling probe retargets mu by the cubic
+    # rule + second-order corrector; one extra back-substitution per
+    # iteration), or "adaptive" (LOQO centrality rule: mu from the spread of
+    # the complementarity products every iteration; kept for comparison,
+    # tools/compare_mu.py)
     mu_strategy: str = "monotone"
     tau_min: float = 0.99  # fraction-to-boundary floor
     kappa_1: float = 1e-2  # initial-point push (absolute)
@@ -76,8 +78,10 @@ class IPOptions:
     #   dense condensed matrix (an oracle path)
     # - "dense": dense Cholesky of the condensed matrix
     kkt_solver: str = "auto"
-    # factor/apply primitive set for the block path: "auto" / "lax"
-    # (torch.linalg); "unrolled" is a TPU expander workaround, not ported
+    # factor/apply primitive set for the block path: "lax" (torch.linalg:
+    # LAPACK / cuSOLVER), "unrolled" (left-looking elementwise substitution
+    # with tree-summed dots: every lane's bits independent of the batch
+    # shape), or "auto" ("lax" on every device)
     block_core: str = "auto"
     # block-local in-kernel retry depth of the factor kernel: a block that
     # fails its own pivot test re-factors at a bumped per-block delta up to

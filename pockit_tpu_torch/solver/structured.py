@@ -2,9 +2,11 @@
 
 The port of ``pockit_tpu/solver/structured.py``: the static layout
 (:func:`structured_layout`, numpy/sympy), the pairwise summation the
-kernels keep (:func:`_tree_sum`), the LAPACK-backed block-arrow core
-(:func:`make_block_arrow_core`, batched ``torch.linalg.cholesky_ex`` /
-``solve_triangular``), the pattern-preconditioned CG
+kernels keep (:func:`_tree_sum`), the block-arrow core
+(:func:`make_block_arrow_core`) on either primitive set: "lax" (batched
+``torch.linalg.cholesky_ex`` / ``solve_triangular``) or "unrolled" (the
+reference's left-looking elementwise Cholesky and substitutions, with
+8-wide panels from 33 up), the pattern-preconditioned CG
 (:func:`make_pcg_apply`), the dense-K entry points of the
 ``kkt_solver="structured"`` oracle path (:func:`make_structured_factor`,
 :func:`make_structured_solve`, :func:`pattern_violation`), and the solve of
@@ -191,6 +193,136 @@ def block_arrow_mv(K_ii, K_ir, K_rr, d_int, d_red, x, interior, reduced):
     return scatter_blocks(y_i, y_r, interior, reduced, x.shape[-1])
 
 
+def _tree_reduce(t, dim):
+    """Sum ``t`` over ``dim`` in :func:`_tree_sum`'s pairwise order, by
+    elementwise adds of strided halves only: no reduction kernel, so each
+    output's rounding is independent of every other axis's size."""
+    t = t.movedim(dim, 0)
+    while t.shape[0] > 1:
+        n = t.shape[0]
+        half = t[0 : n - 1 : 2] + t[1:n:2]
+        t = torch.cat([half, t[n - 1 :]]) if n % 2 else half
+    return t[0]
+
+
+# largest elementwise product a tree dot materializes at once; bigger ones
+# are cut along their leading axis (the lanes), which no lane's order sees
+_TREE_DOT_BYTES = 1 << 28
+
+
+def _tree_dot(a, b, dim):
+    """``_tree_reduce(a * b, dim)`` (``a`` and ``b`` broadcast, ``dim``
+    negative), its product made a slice of the leading axis at a time."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    nbytes = int(np.prod(shape)) * a.element_size()
+    if nbytes <= _TREE_DOT_BYTES or len(shape) + dim < 1 or shape[0] == 1:
+        return _tree_reduce(a * b, dim)
+    a, b = a.expand(shape), b.expand(shape)
+    step = max(1, shape[0] * _TREE_DOT_BYTES // nbytes)
+    return torch.cat(
+        [_tree_reduce(a[i : i + step] * b[i : i + step], dim) for i in range(0, shape[0], step)]
+    )
+
+
+def _chol_unrolled(A):
+    """Left-looking Cholesky of an ``(..., k, k)`` batch, column by column
+    in elementwise ops, as the reference's ``_chol_unrolled``: column j is
+    ``A[j:, j]`` (the lower triangle only, no symmetrization) less the
+    tree sum over earlier columns p of ``L[j:, p] * L[j, p]``, divided by
+    the square root of its first entry. A negative pivot surfaces as nan
+    (and every later column with it). Elementwise arithmetic makes each
+    lane's bits independent of the batch's shape."""
+    k = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(k):
+        a = A[..., j:, j]
+        if j:
+            a = a - _tree_dot(L[..., j:, :j], L[..., j : j + 1, :j], -1)
+        L[..., j:, j] = a / torch.sqrt(a[..., :1])
+    return L
+
+
+def _tri_solve_unrolled(L, B, lower=True):
+    """Solve ``L x = B`` (``lower``) or ``L^T x = B`` (pass the lower factor)
+    for ``L (..., k, k)``, ``B (..., k, m)`` by substitution, row by row,
+    each row's dot over the solved rows tree-summed in index order (the
+    reference's ``_tri_solve_unrolled``)."""
+    k = L.shape[-1]
+    X = torch.empty_like(B)
+    for i in range(k) if lower else range(k - 1, -1, -1):
+        s = B[..., i, :]
+        done = slice(0, i) if lower else slice(i + 1, k)
+        if (lower and i) or (not lower and i < k - 1):
+            coef = L[..., i, done] if lower else L[..., done, i]
+            s = s - _tree_dot(coef[..., :, None], X[..., done, :], -2)
+        X[..., i, :] = s / L[..., i, i, None]
+    return X
+
+
+# panel width of the blocked forms; blocks of _BLOCKED_MIN and wider use
+# them (the reference's constants: its fully unrolled trace at the
+# Goddard's 60 and the orbit's 126 was too large to compile)
+_BLOCKED_PANEL = 8
+_BLOCKED_MIN = 33
+
+
+def _chol_blocked(A):
+    """Left-looking blocked Cholesky (the reference's ``_chol_blocked``):
+    per 8-wide panel, the correction against every factored column (a
+    tree sum over those columns, elementwise, where the reference runs
+    one matmul), the panel's diagonal block by :func:`_chol_unrolled`, and
+    the rows below it by :func:`_tri_solve_unrolled`."""
+    k = A.shape[-1]
+    P = _BLOCKED_PANEL
+    if k <= P:
+        return _chol_unrolled(A)
+    L = torch.zeros_like(A)
+    for p0 in range(0, k, P):
+        p1 = min(p0 + P, k)
+        C = A[..., p0:, p0:p1]
+        if p0:
+            C = C - _tree_dot(L[..., p0:, None, :p0], L[..., None, p0:p1, :p0], -1)
+        Ld = _chol_unrolled(C[..., : p1 - p0, :])
+        L[..., p0:p1, p0:p1] = Ld
+        if p1 < k:
+            # X Ld^T = T  <=>  Ld X^T = T^T
+            L[..., p1:, p0:p1] = _tri_solve_unrolled(Ld, C[..., p1 - p0 :, :].mT, lower=True).mT
+    return L
+
+
+def _tri_solve_blocked(L, B, lower=True):
+    """Blocked companion of :func:`_chol_blocked` (the reference's
+    ``_tri_solve_blocked``): per 8-row panel, the correction against the
+    solved panels as a tree sum, then :func:`_tri_solve_unrolled`."""
+    k = L.shape[-1]
+    P = _BLOCKED_PANEL
+    if k <= P:
+        return _tri_solve_unrolled(L, B, lower=lower)
+    bounds = [(p0, min(p0 + P, k)) for p0 in range(0, k, P)]
+    X = torch.empty_like(B)
+    for p0, p1 in bounds if lower else reversed(bounds):
+        rhs = B[..., p0:p1, :]
+        if lower and p0:
+            rhs = rhs - _tree_dot(L[..., p0:p1, :p0, None], X[..., None, :p0, :], -2)
+        elif not lower and p1 < k:
+            rhs = rhs - _tree_dot(L[..., p1:, p0:p1].mT[..., None], X[..., None, p1:, :], -2)
+        X[..., p0:p1, :] = _tri_solve_unrolled(L[..., p0:p1, p0:p1], rhs, lower=lower)
+    return X
+
+
+def chol_unrolled(A):
+    """The unrolled core's Cholesky: :func:`_chol_blocked` from
+    ``_BLOCKED_MIN`` columns up, :func:`_chol_unrolled` below."""
+    return _chol_blocked(A) if A.shape[-1] >= _BLOCKED_MIN else _chol_unrolled(A)
+
+
+def tri_solve_unrolled(L, B, lower=True):
+    """The unrolled core's triangular solve (blocked from ``_BLOCKED_MIN``)."""
+    if L.shape[-1] >= _BLOCKED_MIN:
+        return _tri_solve_blocked(L, B, lower=lower)
+    return _tri_solve_unrolled(L, B, lower=lower)
+
+
 def chol_nan(A):
     """Batched Cholesky of the symmetrized ``(A + A^T) / 2``, as
     ``jnp.linalg.cholesky`` factors by default, that reports a failure as
@@ -200,6 +332,60 @@ def chol_nan(A):
     a markedly better solve than the lower triangle alone."""
     L, info = torch.linalg.cholesky_ex((A + A.mT) / 2)
     return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+class _Primitives(NamedTuple):
+    """One block core's factor, triangular solve and the three contractions
+    of the block-arrow elimination (over leading batch axes)."""
+
+    chol: object  # A (..., k, k) -> L, nan on a failed pivot
+    tri: object  # (L, B, lower) -> L^{-1} B or L^{-T} B
+    schur: object  # (K_ir (..., nb, ni, nr), X_ir) -> sum_bi K_ir^T X_ir (..., nr, nr)
+    down: object  # (K_ir, x_bi (..., nb, ni)) -> sum_bi K_ir^T x_bi (..., nr)
+    up: object  # (X_ir, x_r (..., nr)) -> X_ir x_r (..., nb, ni)
+
+
+def _lax_tri(L, B, lower):
+    return torch.linalg.solve_triangular(L if lower else L.mT, B, upper=not lower)
+
+
+def _flat_bi(t):
+    """``(..., nb, ni, r) -> (..., nb * ni, r)``: the unrolled contractions
+    tree-sum over the interval blocks' rows in one flat index order."""
+    return t.reshape(t.shape[:-3] + (-1, t.shape[-1]))
+
+
+_LAX = _Primitives(
+    chol=chol_nan,
+    tri=_lax_tri,
+    schur=lambda K_ir, X_ir: torch.einsum("...bik,...bil->...kl", K_ir, X_ir),
+    down=lambda K_ir, x_bi: torch.einsum("...bik,...bi->...k", K_ir, x_bi),
+    up=lambda X_ir, x_r: torch.einsum("...bik,...k->...bi", X_ir, x_r),
+)
+_UNROLLED = _Primitives(
+    chol=chol_unrolled,
+    tri=tri_solve_unrolled,
+    schur=lambda K_ir, X_ir: _tree_dot(
+        _flat_bi(K_ir)[..., :, :, None], _flat_bi(X_ir)[..., :, None, :], -3
+    ),
+    down=lambda K_ir, x_bi: _tree_dot(_flat_bi(K_ir), x_bi.flatten(-2)[..., None], -2),
+    up=lambda X_ir, x_r: _tree_dot(X_ir, x_r[..., None, None, :], -1),
+)
+
+
+def _primitives(method: str) -> _Primitives:
+    """The block core of ``method``. "auto" is "lax" on every device: the
+    reference's "unrolled" exists because TPU XLA's Cholesky and triangular
+    solve expanders changed a lane's numerics with the batch shape, and
+    LAPACK and cuSOLVER have no such expander; phase 11c of
+    ``chip_smoke.py`` prints both cores' batch invariance on the card, the
+    evidence any change of this default needs."""
+    if method not in ("auto", "lax", "unrolled"):
+        raise ValueError(
+            f"unknown block_core method {method!r}; use 'auto', 'lax' or "
+            "'unrolled'"
+        )
+    return _UNROLLED if method == "unrolled" else _LAX
 
 
 def make_block_arrow_core(interior, reduced, n: int, method: str = "auto"):
@@ -212,27 +398,20 @@ def make_block_arrow_core(interior, reduced, n: int, method: str = "auto"):
       extrema (as ``jnp.linalg.cholesky`` does), never raises.
     - ``apply(factors, rhs (..., n)) -> x (..., n)``.
 
-    ``method`` accepts the reference's values; "auto" and "lax" mean
-    LAPACK/cuSOLVER-backed ``torch.linalg``. "unrolled" (an expander-free
-    form that only the TPU needed) is not ported.
+    ``method``: "lax" factors with ``torch.linalg`` (the symmetrized
+    :func:`chol_nan`); "unrolled" with the reference's elementwise forms
+    (:func:`chol_unrolled`, :func:`tri_solve_unrolled`, tree-summed
+    contractions), which give every lane the same bits at any batch shape;
+    "auto" is "lax" (see :func:`_primitives`).
     """
-    if method not in ("auto", "lax", "unrolled"):
-        raise ValueError(
-            f"unknown block_core method {method!r}; use 'auto', 'lax' or "
-            "'unrolled'"
-        )
-    if method == "unrolled":
-        raise NotImplementedError(
-            "block_core='unrolled' works around TPU XLA expanders and is "
-            "not ported (ROADMAP queue 1, left out on purpose)"
-        )
+    prim = _primitives(method)
     interior_t = torch.as_tensor(np.asarray(interior, dtype=np.int64))
     reduced_t = torch.as_tensor(np.asarray(reduced, dtype=np.int64))
 
     def _blk_solve(L_i, sc_i, B):
         Bs = B * sc_i[..., :, None]
-        t = torch.linalg.solve_triangular(L_i, Bs, upper=False)
-        X = torch.linalg.solve_triangular(L_i.mT, t, upper=True)
+        t = prim.tri(L_i, Bs, True)
+        X = prim.tri(L_i, t, False)
         return X * sc_i[..., :, None]
 
     def factor(K_ii, K_ir, K_rr):
@@ -242,15 +421,15 @@ def make_block_arrow_core(interior, reduced, n: int, method: str = "auto"):
             torch.clamp_min(torch.diagonal(K_ii, dim1=-2, dim2=-1), 1e-30)
         )
         K_ii_t = K_ii * sc_i[..., :, None] * sc_i[..., None, :]
-        L_i = chol_nan(K_ii_t)
+        L_i = prim.chol(K_ii_t)
         diag_i = torch.diagonal(L_i, dim1=-2, dim2=-1)
         L_i_safe = torch.where(torch.isfinite(L_i), L_i, eye_i)
         X_ir = _blk_solve(L_i_safe, sc_i, K_ir)  # K_ii^{-1} K_ir
 
-        S = K_rr - torch.einsum("...bik,...bil->...kl", K_ir, X_ir)
+        S = K_rr - prim.schur(K_ir, X_ir)
         sc_r = torch.rsqrt(torch.clamp_min(torch.diagonal(S, dim1=-2, dim2=-1), 1e-30))
         S_t = S * sc_r[..., :, None] * sc_r[..., None, :]
-        L_r = chol_nan(S_t)
+        L_r = prim.chol(S_t)
         diag_r = torch.diagonal(L_r, dim1=-2, dim2=-1)
         L_r_safe = torch.where(torch.isfinite(L_r), L_r, eye_r)
 
@@ -265,12 +444,10 @@ def make_block_arrow_core(interior, reduced, n: int, method: str = "auto"):
         L_i, sc_i, X_ir, K_ir, L_r, sc_r = factors
         b_i, b_r = gather_blocks(rhs, interior_t.to(rhs.device), reduced_t.to(rhs.device))
         x_bi = _blk_solve(L_i, sc_i, b_i[..., None])[..., 0]
-        r_red = b_r - torch.einsum("...bik,...bi->...k", K_ir, x_bi)
-        t = torch.linalg.solve_triangular(
-            L_r, (sc_r * r_red)[..., None], upper=False
-        )
-        x_r = sc_r * torch.linalg.solve_triangular(L_r.mT, t, upper=True)[..., 0]
-        x_i = x_bi - torch.einsum("...bik,...k->...bi", X_ir, x_r)
+        r_red = b_r - prim.down(K_ir, x_bi)
+        t = prim.tri(L_r, (sc_r * r_red)[..., None], True)
+        x_r = sc_r * prim.tri(L_r, t, False)[..., 0]
+        x_i = x_bi - prim.up(X_ir, x_r)
         return scatter_blocks(
             x_i, x_r, interior_t.to(rhs.device), reduced_t.to(rhs.device), n
         )
@@ -388,9 +565,9 @@ def make_sharded_structured_solve(
     interior blocks must be divisible by the axis size; exact for
     ``krylov_rank == 0`` layouts.
 
-    ``method``: "auto" and "lax" factor with ``torch.linalg`` (the JAX
-    solve uses no Pallas kernel here); "unrolled" (an expander-free form
-    that only the TPU needed) is not ported.
+    ``method``: the block core of :func:`make_block_arrow_core` ("lax",
+    "unrolled", or "auto", which is "lax"); the JAX solve uses no Pallas
+    kernel here.
     """
     import torch.distributed as dist
 
@@ -406,11 +583,7 @@ def make_sharded_structured_solve(
         raise ValueError(
             f"unknown method {method!r}; use 'auto', 'lax' or 'unrolled'"
         )
-    if method == "unrolled":
-        raise NotImplementedError(
-            "method='unrolled' works around TPU XLA expanders and is not "
-            "ported (ROADMAP queue 1, left out on purpose)"
-        )
+    prim = _primitives(method)
     group = mesh.get_group(axis)
     interior_np = np.asarray(layout.interior, dtype=np.int64)
     L_cols = int(layout.n_cols) or int(interior_np.size + layout.reduced.size)
@@ -422,8 +595,8 @@ def make_sharded_structured_solve(
 
     def _blk_solve(L_i, sc_i, B):
         Bs = B * sc_i[:, :, None]
-        t = torch.linalg.solve_triangular(L_i, Bs, upper=False)
-        X = torch.linalg.solve_triangular(L_i.mT, t, upper=True)
+        t = prim.tri(L_i, Bs, True)
+        X = prim.tri(L_i, t, False)
         return X * sc_i[:, :, None]
 
     def solve(K, rhs):
@@ -448,24 +621,24 @@ def make_sharded_structured_solve(
         sc_i = torch.rsqrt(
             torch.clamp_min(torch.diagonal(K_ii, dim1=1, dim2=2), 1e-30)
         )
-        L_i = chol_nan(K_ii * sc_i[:, :, None] * sc_i[:, None, :])
+        L_i = prim.chol(K_ii * sc_i[:, :, None] * sc_i[:, None, :])
         X_ir = _blk_solve(L_i, sc_i, K_ir)
         x_bi = _blk_solve(L_i, sc_i, b_i[:, :, None])[:, :, 0]
 
         # partial Schur contributions; ONE all_reduce pair crosses ranks
-        S_part = torch.einsum("bik,bil->kl", K_ir, X_ir)
-        r_part = torch.einsum("bik,bi->k", K_ir, x_bi)
+        S_part = prim.schur(K_ir, X_ir)
+        r_part = prim.down(K_ir, x_bi)
         dist.all_reduce(S_part, group=group)
         dist.all_reduce(r_part, group=group)
         S = K[reduced[:, None], reduced[None, :]] - S_part
         r_red = rhs[reduced] - r_part
 
         sc_r = torch.rsqrt(torch.clamp_min(torch.diagonal(S), 1e-30))
-        L_r = chol_nan(S * sc_r[:, None] * sc_r[None, :])
-        t = torch.linalg.solve_triangular(L_r, (sc_r * r_red)[:, None], upper=False)
-        x_r = sc_r * torch.linalg.solve_triangular(L_r.mT, t, upper=True)[:, 0]
+        L_r = prim.chol(S * sc_r[:, None] * sc_r[None, :])
+        t = prim.tri(L_r, (sc_r * r_red)[:, None], True)
+        x_r = sc_r * prim.tri(L_r, t, False)[:, 0]
 
-        x_i = x_bi - torch.einsum("bik,k->bi", X_ir, x_r)
+        x_i = x_bi - prim.up(X_ir, x_r)
         x_local = torch.zeros_like(rhs)
         x_local[my_interior.reshape(-1)] = x_i.reshape(-1)
         # sum the ranks' interior pieces; add the (replicated) reduced part once

@@ -221,34 +221,30 @@ def test_solve_turns_tf32_off_and_restores_the_callers_flags():
 # the options of each case
 _CASES = {
     "adaptive": dict(mu_strategy="adaptive"),
-    "unrolled": dict(block_core="unrolled"),
+    "unrolled": dict(block_core="unrolled", kkt_solver="block"),
     "live_metrics": dict(live_metrics=True),
 }
-# the ops hooks, which raised here until they were ported, and the module
-# constants their environment variables set (read at import)
-_PORTED_HOOKS = {"live_metrics": None, "POCKIT_DUMP_KKT": "_DUMP_KKT",
-                 "POCKIT_IPM_DEBUG_TRACE": "_DEBUG_TRACE"}
+# the module constants the developer variables set (read at import)
+_HOOK_CONSTANTS = {"POCKIT_DUMP_KKT": "_DUMP_KKT", "POCKIT_IPM_DEBUG_TRACE": "_DEBUG_TRACE"}
 
 
-@pytest.mark.parametrize("name", sorted(_CASES) + ["POCKIT_DUMP_KKT", "POCKIT_IPM_DEBUG_TRACE"])
+@pytest.mark.parametrize("name", sorted(_CASES) + sorted(_HOOK_CONSTANTS))
 def test_unported_options_raise(name, monkeypatch, tmp_path):
-    """What the port leaves out on purpose raises, naming the ROADMAP; the
-    ops hooks (``live_metrics`` and the two developer variables) are
-    ported and solve (``tests/test_torch_ops.py`` holds their output
-    against the reference)."""
+    """Every option that raised here until it was ported solves: the LOQO
+    barrier rule, the unrolled block core, and the ops hooks
+    (``live_metrics`` and the two developer variables). Their results are
+    held against the reference by ``tests/test_torch_fuzz.py``,
+    ``tests/test_torch_unrolled.py`` and ``tests/test_torch_ops.py``."""
     system, phase = build_lqr(port_lobatto, 4, 5)
     opts = IPOptions(**_CASES.get(name, {}))
-    solve = lambda: ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts,
-                              device="cpu", dtype=torch.float64)
-    if name not in _PORTED_HOOKS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve()
-        return
-    if _PORTED_HOOKS[name]:
+    if name in _HOOK_CONSTANTS:
         value = str(tmp_path / "kkt.npz") if name == "POCKIT_DUMP_KKT" else True
-        monkeypatch.setattr(port_ipm_solver, _PORTED_HOOKS[name], value)
-    _, info = solve()
+        monkeypatch.setattr(port_ipm_solver, _HOOK_CONSTANTS[name], value)
+    _, info = ipm.solve(system, [port_lobatto.constant_guess(phase, 0), [0.0]], opts,
+                        device="cpu", dtype=torch.float64)
     assert info["status"] == 0
+    if name == "unrolled":
+        assert info["kkt_solver"] == "block"
 
 
 @pytest.mark.parametrize("kkt_solver", ["block", "pallas"])

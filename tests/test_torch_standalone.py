@@ -5,9 +5,9 @@ package; its copies of the plain-numpy numerics, discretization blocks
 and mesh planner match the JAX package's; and its entry points ask for
 the CUDA card unless the caller passes ``device="cpu"``.
 
-Tolerance of the numerics comparison: atol 1e-13. The copies run the JAX
-package's numpy path; the JAX package may take its native C++ path for
-the nodes, which agrees with the numpy path to ~4e-14.
+Tolerance of the numerics comparison: atol 1e-13. Both packages take
+their nodes from their copies of one C++ library where it builds (bit for
+bit alike, ``tests/test_torch_unrolled.py``), else from the numpy path.
 """
 
 import os
@@ -47,7 +47,8 @@ assert {"pockit_tpu_torch.optimizer.ipopt", "pockit_tpu_torch.optimizer.scipy",
         "pockit_tpu_torch.examples.brachistochrone",
         "pockit_tpu_torch.examples.goddard_ascent", "pockit_tpu_torch.parallel.distributed",
         "pockit_tpu_torch.parallel.sharding", "pockit_tpu_torch.utils.aot",
-        "pockit_tpu_torch.examples.serving_aot"} <= set(names), names
+        "pockit_tpu_torch.examples.serving_aot",
+        "pockit_tpu_torch.numerics.native"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "kernel_ab"):
