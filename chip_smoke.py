@@ -1179,45 +1179,20 @@ def live_run(device="cuda"):
     return rec
 
 
-def device_busy(trace_path):
-    """The device's work in a ``profile_trace`` file: the union of its
-    kernel, copy and set intervals (busy seconds), the kernels' summed
-    seconds, the port's three kernels' seconds and launches, and the five
-    kernels that take most of the time."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"], e["cat"]) for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-    busy_us, end = 0.0, -np.inf
-    for start, stop, _, _ in dev:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    by_name, ours = {}, {}
-    for start, stop, name, cat in dev:
-        if cat == "kernel":
-            by_name[name] = by_name.get(name, 0.0) + (stop - start)
-            for k in ("factor", "apply_down", "apply_up"):
-                if f"{k}_kernel" in name:
-                    s, n = ours.get(k, (0.0, 0))
-                    ours[k] = (s + (stop - start) / 1e6, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return dict(device_events=len(dev), kernels=sum(1 for d in dev if d[3] == "kernel"),
-                kernel_s=sum(by_name.values()) / 1e6, busy_s=busy_us / 1e6,
-                port_kernels={k: {"s": v[0], "launches": v[1]} for k, v in ours.items()},
-                top_kernels=[[name[:80], us / 1e6] for name, us in top])
-
-
 def profile_run(replan):
     """9f: one warm replan of 9a timed alone, then again under
     ``profile_trace``: the device's busy seconds (kernels, copies, sets;
     the same work either way) over each wall. The profiler's host cost
     stretches its own wall, so the unprofiled wall gives the replan's busy
-    share. Printed, not gated; with no device event in the trace, "not
-    measured"."""
+    share. The trace is read by the benchmark's reader
+    (``benchmark/trace.py``): busy seconds are the union of kernel, copy
+    and set intervals. Printed, not gated; with no device event in the
+    trace, "not measured"."""
     import tempfile
 
     import torch
 
+    from benchmark import trace
     from pockit_tpu_torch.utils import profile_trace
 
     t0 = time.perf_counter()
@@ -1230,7 +1205,15 @@ def profile_run(replan):
             replan()
             torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-        rec = dict(wall_s=wall, profiled_wall_s=wall_prof, **device_busy(prof.trace_path))
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    s = trace.summarize(events)
+    kernel_us = [e["dur"] for e in events if e.get("cat") == "kernel" and "dur" in e]
+    rec = dict(wall_s=wall, profiled_wall_s=wall_prof, device_events=s["device_events"],
+               kernels=len(kernel_us), kernel_s=sum(kernel_us) / 1e6, busy_s=s["busy_s"],
+               port_kernels={k: {"s": sum(e["dur_s"] for e in v), "launches": len(v)}
+                             for k, v in s["port"].items() if v},
+               top_kernels=s["device_ops"][:5])
     if rec["device_events"]:
         rec.update(busy_share=rec["busy_s"] / wall, busy_share_profiled=rec["busy_s"] / wall_prof)
     else:

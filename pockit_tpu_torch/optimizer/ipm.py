@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from pockit_tpu_torch.solver import Bounds, IPOptions, broadcast_bounds, make_ip_solver
+from pockit_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from pockit_tpu_torch.base.system import SystemBase
@@ -307,9 +308,10 @@ def solve_batch_drained(
     rounds = 0
     while len(pending) and rounds < max_drain_rounds:
         take = pending[:B_drain]
-        idx = torch.as_tensor(np.resize(take, B_drain), device=z.device)
-        z, pk = drain_round(z, idx, *bc_full)
-        pk = pk.cpu().numpy()
+        with span("ipm.drain_round"):
+            idx = torch.as_tensor(np.resize(take, B_drain), device=z.device)
+            z, pk = drain_round(z, idx, *bc_full)
+            pk = pk.cpu().numpy()
         uniq = len(take)
         status[take] = pk[0, :uniq].astype(np.int32)
         obj[take] = pk[1, :uniq]

@@ -58,6 +58,7 @@ from pockit_tpu_torch.solver.structured import (
     gather_blocks,
     scatter_blocks,
 )
+from pockit_tpu_torch.utils.profiling import count
 
 _BT = 128  # lane padding of pad_move
 MAX_INTERIOR = 64  # widest padded interior block the kernels take
@@ -626,6 +627,7 @@ def make_newton_dir(
         norm = lambda a: torch.linalg.vector_norm(a, dim=1)
 
         def try_delta(delta):
+            count("ipm.factor_tries")
             delta_p = torch.nn.functional.pad(delta, (0, B_pad - B))
             fac, _, _, d_used, d_blk, allok = core.factor(Kii_t, Kir_t, Krr_t, delta_p)
             d_used = d_used[:B]

@@ -44,6 +44,7 @@ import torch
 from torch.func import grad, jacfwd, jacrev, jvp, vjp, vmap
 
 from pockit_tpu_torch.solver.options import IPOptions
+from pockit_tpu_torch.utils.profiling import count, phases, span
 
 _FILTER_SIZE = 24
 
@@ -389,8 +390,8 @@ def make_ip_solver(
     KAPPA_SOC = 0.99
 
     def solve(z0, bounds: Bounds, rt) -> IPResult:
-        with matmul_precision(opt.matmul_precision), torch.no_grad():
-            return _solve_impl(z0, bounds, rt)
+        with matmul_precision(opt.matmul_precision), torch.no_grad(), phases() as mark:
+            return _solve_impl(z0, bounds, rt, mark)
 
     solve.kkt_path = kkt_path
     # (nb, ni, nr) of the block-arrow layout the block paths factor, unpadded
@@ -398,7 +399,11 @@ def make_ip_solver(
         (*np.shape(block.interior_pad), len(block.layout.reduced)) if use_block else None
     )
 
-    def _solve_impl(z0, bounds: Bounds, rt) -> IPResult:
+    def _solve_impl(z0, bounds: Bounds, rt, mark) -> IPResult:
+        # phases (utils.profiling): ipm.init up to the first state, one
+        # ipm.iteration per trip (cut into ipm.assemble, ipm.newton,
+        # ipm.line_search, ipm.update), then ipm.finalize
+        mark("ipm.init")
         dtype, dev = z0.dtype, z0.device
         B = z0.shape[0]
         # the path is chosen from the shape before any launch; a kernel that
@@ -591,7 +596,8 @@ def make_ip_solver(
             phi = torch.where(inside & torch.isfinite(f), f - mu * barrier, torch.inf)
             return phi, theta
 
-        def body(st: _State) -> _State:
+        def body(st: _State, mark) -> _State:
+            mark("ipm.assemble")
             z, s, y = st.z, st.s, st.y
             w_l, w_u, v_l, v_u = st.w_l, st.w_u, st.v_l, st.v_u
             mu = st.mu
@@ -697,6 +703,7 @@ def make_ip_solver(
                 )[:, :, 0]
 
             # -- inertia correction -------------------------------------
+            mark("ipm.newton")
             step_cap = 1e3 * (1.0 + torch.linalg.vector_norm(z, dim=-1))
             dreg_eff = st.dreg
             if opt.delta_w_min:
@@ -830,6 +837,7 @@ def make_ip_solver(
                             ),
                         ),
                     )
+                    count("ipm.factor_tries")
                     fac_n, dz_n, ok_n = _try(delta_new)
                     fac_k = fac_n if fac_k is None else tuple(
                         _sel(run, a, b) for a, b in zip(fac_n, fac_k)
@@ -840,6 +848,7 @@ def make_ip_solver(
                     tries = tries + run.to(torch.int32)
                 if fac_k is None:
                     # no lane active: the step is discarded everywhere
+                    count("ipm.factor_tries")
                     fac_k, _, _ = _try(delta_w)
 
                 def chol_solve(b):
@@ -994,6 +1003,7 @@ def make_ip_solver(
             dv_u = torch.where(has_cu, t_su * inv_bu - v_u + v_u * inv_bu * ds, 0.0)
 
             # -- fraction to boundary -----------------------------------
+            mark("ipm.line_search")
             tau = torch.clamp_min(1.0 - mu, opt.tau_min)
 
             def _ftb_primal(dz_, ds_):
@@ -1075,6 +1085,7 @@ def make_ip_solver(
                 run = (~acc_bt) & (k_ls < opt.max_ls) & active
                 if not bool(run.any()):
                     break
+                count("ipm.ls_trials")
                 alpha_n = alpha_bt * 0.5
                 _, _, acc_n, sw_n = _trial(alpha_n, dz, ds)
                 alpha_bt = _sel(run, alpha_n, alpha_bt)
@@ -1122,6 +1133,7 @@ def make_ip_solver(
             alpha = torch.where(use_fb | accepted, alpha, 0.0)
             took_step = accepted | use_fb
 
+            mark("ipm.update")
             # filter augmentation for h-type (non-Armijo) accepted steps;
             # slot 0 holds the theta_max cap and is never evicted
             augment = took_step & ~(sw_eff & ~use_fb)
@@ -1233,14 +1245,16 @@ def make_ip_solver(
                 kkt=_sel(st.done, st.kkt, E0),
             )
 
+        mark(None)
         st = state
         while True:
             run = (~st.done) & (st.it < opt.max_iter)
             if not bool(run.any()):
                 break
-            with torch.profiler.record_function("ipm.iteration"):
-                st = _select_tree(run, body(st), st)
+            with span("ipm.iteration"), phases() as mark_trip:
+                st = _select_tree(run, body(st, mark_trip), st)
 
+        mark("ipm.finalize")
         # final KKT error for reporting (J^T y via one vjp), then the
         # post-loop dual refresh: a fresh least-squares y accepted per lane
         # only where it strictly improves the measured KKT error

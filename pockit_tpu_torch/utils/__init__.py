@@ -9,6 +9,9 @@ _NAMES = {
     "save_solution": "checkpoint",
     "load_solution": "checkpoint",
     "profile_trace": "profiling",
+    "span": "profiling",
+    "count": "profiling",
+    "recording": "profiling",
     "export_batch_solver": "aot",
     "save_batch_solver": "aot",
     "load_batch_solver": "aot",
