@@ -358,9 +358,10 @@ def phase_ragged(dtype, rtol, nb, ni, nr, attempts=3, lanes=1001, timed=False, i
            "apply_up": worst(up, up_ref)}
     errs = {k: v[1] for k, v in err.items()}
     launch = ck.apply_up_launch(nb, core.ni_p, core.nr_p, lanes, dtype)
+    flaunch = ck.factor_launch(core.ni_p, core.nr_p, lanes, dtype)
     print(f"phase 2 ragged {dtype} nb={nb} ni_p={core.ni_p} nr_p={core.nr_p} lanes={lanes} "
-          f"attempts={attempts} (factor lanes per CTA "
-          f"{ck.factor_tile_lanes(core.ni_p, core.nr_p, dtype)}, apply_up body "
+          f"attempts={attempts} (factor body {flaunch['body']}, {flaunch['lanes']} lanes and "
+          f"{flaunch['warps']} warps per CTA; apply_up body "
           f"{launch['body']} warps {launch['warps']}): "
           + " ".join(f"{k} max_lane_rel_err={v:.3e}" for k, v in errs.items())
           + f"; lanes accepted {int(ok.sum())} (tolerance per-lane rel {rtol:.0e})", flush=True)

@@ -105,6 +105,63 @@ struct TreeAcc {
   }
 };
 
+// The same sum of term(0), ..., term(n - 1) for a run-time count n <= 127,
+// eight terms at a time: each run of eight consecutive terms is a perfect
+// tree, pushed into a counter whose level l holds 8 * 2^l terms, and the
+// r = n % 8 terms left over are folded as TreeAcc folds its lowest levels
+// (the tree of 4, then of 2, then the last term), below the runs. So the
+// tree is TreeAcc's, and the products of a run are independent.
+template <typename T, typename F>
+__device__ __forceinline__ T tree_dot(int n, F&& term) {
+  TreeAcc<T> runs;
+  int j = 0;
+  for (; j + 8 <= n; j += 8) {
+    T a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] = term(j + u);
+    runs.push(tree_sum_n<8>(a));
+  }
+  const int r = n - j;
+  T a[7];
+#pragma unroll
+  for (int u = 0; u < 7; ++u) {
+    a[u] = T(0);
+    if (u < r) a[u] = term(j + u);
+  }
+  T acc = T(0);
+  switch (r) {
+    case 1: acc = a[0]; break;
+    case 2: acc = a[0] + a[1]; break;
+    case 3: acc = (a[0] + a[1]) + a[2]; break;
+    case 4: acc = (a[0] + a[1]) + (a[2] + a[3]); break;
+    case 5: acc = ((a[0] + a[1]) + (a[2] + a[3])) + a[4]; break;
+    case 6: acc = ((a[0] + a[1]) + (a[2] + a[3])) + (a[4] + a[5]); break;
+    case 7: acc = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + a[6]); break;
+    default: break;
+  }
+  bool have = r > 0;
+#pragma unroll
+  for (int l = 0; l < TreeAcc<T>::kLevels; ++l) {
+    if ((runs.n >> l) & 1) {
+      acc = have ? runs.st[l] + acc : runs.st[l];
+      have = true;
+    }
+  }
+  return acc;
+}
+
+// Offset of row k in a packed lower triangle.
+__host__ __device__ constexpr int tri(int k) { return k * (k + 1) / 2; }
+
+// One element from device memory into shared memory, asynchronously
+// (cp.async); cp.async.wait_all then waits for all of this thread's.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(T)));
+}
+
 template <int V>
 struct Int {
   static constexpr int value = V;
@@ -194,9 +251,9 @@ __device__ __forceinline__ void blk_solve_rt(T* x, int n, const T* __restrict__ 
 // factor: one warp per lane, TL lanes per CTA
 // ---------------------------------------------------------------------------
 
-// Most lanes per CTA: one 32-byte sector of each element (8 float, 4
-// double). The launcher takes fewer when that tile would not fit in shared
-// memory (wide blocks).
+// Lanes per CTA: one 32-byte sector of each element (8 float, 4 double).
+// Where that tile would not fit in shared memory (wide blocks) the launcher
+// takes the wide body below, one lane per CTA.
 template <typename T>
 __host__ __device__ constexpr int tile_lanes() { return 32 / (int)sizeof(T); }
 
@@ -250,30 +307,39 @@ __device__ void reload_lane(T* dst, int ld, const T* g, int rows, int cols, int 
 
 // Left-looking Cholesky of (A + d I) with Jacobi equilibration, in place
 // (A (NI, NI) with row stride NI+1 becomes L; the strict upper part is
-// written as the reference computes it). Worker i owns row i; column k's
-// pivot passes through `slot`. Returns the pivot extrema over rows < n_real
-// (the same in every worker).
+// written as the reference computes it). Worker w owns rows w + 32 q (one
+// row up to NI = 32, two up to 64), each row's entry held in registers
+// across the pivot's sync; column k's pivot passes through `slot`. Returns
+// the pivot extrema over rows < n_real (the same in every worker).
 template <int NI, typename T>
 __device__ void chol_interior(T* A, T* sc, T* slot, int n_real, T d, int w, T& dmin, T& dmax) {
   constexpr int ld = NI + 1;
-  if (w < NI) sc[w] = T(1) / sqrt(nan_max(A[w * ld + w] + d, T(1e-30)));
+  constexpr int Q = (NI + kWarp - 1) / kWarp;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = w + kWarp * q;
+    if (i < NI) sc[i] = T(1) / sqrt(nan_max(A[i * ld + i] + d, T(1e-30)));
+  }
   __syncwarp();
   dmin = inf_val<T>();
   dmax = -inf_val<T>();
-  const int i = w;
-  const bool row = i < NI;
   static_for<0, NI>([&](auto kc) {
     constexpr int k = decltype(kc)::value;
-    T vi = T(0);
-    if (row) {
-      vi = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
-      if constexpr (k > 0) {
-        T terms[k];
+    T vi[Q];
 #pragma unroll
-        for (int j = 0; j < k; ++j) terms[j] = A[i * ld + j] * A[k * ld + j];
-        vi = vi - tree_sum_n<k>(terms);
+    for (int q = 0; q < Q; ++q) {
+      const int i = w + kWarp * q;
+      vi[q] = T(0);
+      if (i < NI) {
+        vi[q] = (A[i * ld + k] + (i == k ? T(1) : T(0)) * d) * sc[i] * sc[k];
+        if constexpr (k > 0) {
+          T terms[k];
+#pragma unroll
+          for (int j = 0; j < k; ++j) terms[j] = A[i * ld + j] * A[k * ld + j];
+          vi[q] = vi[q] - tree_sum_n<k>(terms);
+        }
+        if (i == k) *slot = vi[q];
       }
-      if (i == k) *slot = vi;
     }
     __syncwarp();
     const T dk = sqrt(*slot);
@@ -282,7 +348,11 @@ __device__ void chol_interior(T* A, T* sc, T* slot, int n_real, T d, int w, T& d
       dmax = nan_max(dmax, dk);
     }
     const T inv = T(1) / dk;
-    if (row) A[i * ld + k] = vi * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = w + kWarp * q;
+      if (i < NI) A[i * ld + k] = vi[q] * inv * (i > k ? T(1) : T(0)) + (i == k ? T(1) : T(0)) * dk;
+    }
     __syncwarp();
   });
 }
@@ -372,12 +442,12 @@ __device__ void chol_rt(T* A, int ld, int nn, int n_real, T d, T* sc, T* slot, i
     chol_rt_wide<T>(A, ld, nn, n_real, d, sc, slot, w, dmin, dmax);
 }
 
-// t = L^{-1} (sc K_ir), column by column (worker w owns columns w + 32 q),
-// in place over X (NI, nr).
+// Column c of t = L^{-1} (sc K_ir), in place in X (ni, nr); L with row
+// stride ld. A built NI keeps the column in registers; NI = 0 takes any
+// ni up to 64 at run time, the column in shared memory.
 template <int NI, typename T>
-__device__ void fwd_sub_cols(const T* L, const T* sc, T* X, int nr, int w) {
-  constexpr int ld = NI + 1;
-  for (int c = w; c < nr; c += kWarp) {
+__device__ void fwd_col(const T* L, int ld, const T* sc, T* X, int ni, int nr, int c) {
+  if constexpr (NI > 0) {
     T t[NI];
     static_for<0, NI>([&](auto kc) {
       constexpr int k = decltype(kc)::value;
@@ -392,7 +462,20 @@ __device__ void fwd_sub_cols(const T* L, const T* sc, T* X, int nr, int w) {
     });
 #pragma unroll
     for (int k = 0; k < NI; ++k) X[k * nr + c] = t[k];
+  } else {
+    for (int k = 0; k < ni; ++k) {
+      T v = X[k * nr + c] * sc[k];
+      if (k) v = v - tree_dot<T>(k, [&](int j) { return X[j * nr + c] * L[k * ld + j]; });
+      X[k * nr + c] = v / L[k * ld + k];
+    }
   }
+}
+
+// t = L^{-1} (sc K_ir), column by column (worker w owns columns w + 32 q),
+// in place over X (NI, nr).
+template <int NI, typename T>
+__device__ void fwd_sub_cols(const T* L, const T* sc, T* X, int nr, int w) {
+  for (int c = w; c < nr; c += kWarp) fwd_col<NI>(L, NI + 1, sc, X, NI, nr, c);
 }
 
 // S -= t^T t in Gram form: worker w owns columns w + 32 q of S, each entry
@@ -503,11 +586,11 @@ __device__ void bwd_sub_cols_rt(const T* L, int ld, const T* sc, T* X, int ni, i
 // sweeps in shared memory (the *_rt functions). Retries reload the block's
 // input for that lane alone (the factorization is in place). The reduced
 // block (run-time nr_p <= 128) is factored at the end from S; when retries
-// are allowed S is first saved to s_scr. Wide reduced blocks leave room
-// for fewer lanes: at (ni_p 40, nr_p 128) a float lane takes 93,776 bytes
-// (2 lanes per CTA) and a double lane 187,552 (1); at (64, 128) a double
-// lane takes 232,480 bytes, 32 more than a CTA may hold, and the launcher
-// refuses that shape.
+// are allowed S is first saved to s_scr. Wide blocks leave room for fewer
+// lanes than a full tile (at (ni_p 40, nr_p 128) a float lane takes 93,776
+// bytes and a double lane 187,552): there factor_kernel_wide runs instead.
+// At (64, 128) a double lane takes 232,480 bytes, 32 more than a CTA may
+// hold, and the launcher refuses that shape.
 // Several CTAs per SM overlap one CTA's loads with another's compute:
 // the launch bound asks for 3 (the float tile takes 60.5 KB of shared
 // memory at the bench shapes, and ptxas then fits 80 registers with a few
@@ -649,6 +732,385 @@ factor_kernel(const T* __restrict__ kii, const T* __restrict__ kir, const T* __r
 }
 
 // ---------------------------------------------------------------------------
+// factor, wide body: one lane per CTA of kWideWarps warps
+// ---------------------------------------------------------------------------
+
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWarp * kWideWarps;
+constexpr int kTeam0 = kWideThreads - kWarp;  // the interior Cholesky's warp; the threads below work
+constexpr int kGramRun = 8;  // Gram units a warp takes from the counter at a time
+constexpr int kBarWork = 1;  // the working threads' named barrier
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared-memory layout of the wide body, in elements. Pipelined (where it
+// fits): three buffers of K_ii[b] (rows padded to ni + 1, factored in place
+// into L_i[b]) and of sc_i[b], two of K_ir[b] (-> t -> X_ir[b]), so that
+// block b + 1's factor and block b + 2's loads go on while block b is
+// solved; else one of each. Then S's lower triangle, packed (row r at
+// tri(r)), factored in place into L_r; sc_r; the pivot slot and the Gram
+// update's unit counter. The same count is cuda_kkt.factor_lane_bytes for a
+// shape that takes this body.
+struct WideLayout {
+  int ldi, na, nx, a, x, sc, s, scr, slot, elems;
+  __host__ __device__ WideLayout(int ni, int nr, bool pipe) {
+    ldi = ni + 1;
+    na = pipe ? 3 : 1;
+    nx = pipe ? 2 : 1;
+    a = 0;
+    x = na * ni * ldi;
+    sc = x + nx * ni * nr;
+    s = sc + na * ni;
+    scr = s + tri(nr);
+    slot = scr + nr;
+    elems = slot + 4;
+  }
+};
+
+// Column c of X_ir = sc L^{-T} t (bottom row first), each entry, scaled,
+// written to out[(k nr + c) ld_out] (one lane in device memory) as soon as
+// it is final. A built NI leaves t in X as it is, so that the Gram update
+// may read it meanwhile; NI = 0 solves in place in X.
+template <int NI, typename T>
+__device__ void bwd_col(const T* L, int ld, const T* sc, T* X, int ni, int nr, int c, T* out,
+                        int ld_out) {
+  if constexpr (NI > 0) {
+    T x[NI];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) x[k] = X[k * nr + c];
+    static_for<0, NI>([&](auto kc) {
+      constexpr int k = NI - 1 - decltype(kc)::value;
+      T v = x[k];
+      if constexpr (k < NI - 1) {
+        T terms[NI - 1 - k];
+#pragma unroll
+        for (int j = k + 1; j < NI; ++j) terms[j - k - 1] = x[j] * L[j * ld + k];
+        v = v - tree_sum_n<NI - 1 - k>(terms);
+      }
+      x[k] = v / L[k * ld + k];
+      out[(size_t)(k * nr + c) * ld_out] = x[k] * sc[k];
+    });
+  } else {
+    for (int k = ni - 1; k >= 0; --k) {
+      T v = X[k * nr + c];
+      if (k < ni - 1)
+        v = v - tree_dot<T>(ni - 1 - k, [&](int j) {
+              return X[(k + 1 + j) * nr + c] * L[(k + 1 + j) * ld + k];
+            });
+      X[k * nr + c] = v / L[k * ld + k];
+      out[(size_t)(k * nr + c) * ld_out] = X[k * nr + c] * sc[k];
+    }
+  }
+}
+
+// The tree sum over the NI rows of t of tc[i] t[i][r] (NI a multiple of 8):
+// runs of eight rows, then the tree of the runs, which is tree_sum_n<NI>'s
+// order; at most eight products live at a time.
+template <int NI, typename T>
+__device__ __forceinline__ T gram_entry(const T (&tc)[NI], const T* X, int nr, int r) {
+  static_assert(NI % 8 == 0, "gram_entry: NI a multiple of 8");
+  T run[NI / 8];
+#pragma unroll
+  for (int q = 0; q < NI / 8; ++q) {
+    T a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] = tc[8 * q + u] * X[(8 * q + u) * nr + r];
+    run[q] = tree_sum_n<8>(a);
+  }
+  return tree_sum_n<NI / 8>(run);
+}
+
+// S -= t^T t on S's lower triangle (packed, row r at tri(r)), each entry
+// r >= c a tree sum over the ni rows of t. The entries fall into units: a
+// row r and the 32 columns c = 32 ct + l of a column tile ct <= r / 32.
+// Warps take kGramRun units at a time from the counter *next (zero at the
+// start), in order, so a warp that comes late takes less; lane l keeps
+// column c of t in registers (a built NI) while its tile stays the same,
+// and reads row r's entries as broadcasts.
+template <int NI, typename T>
+__device__ void gram_lower(const T* X, T* S, int ni, int nr, int* next, int l) {
+  const int tiles = (nr + kWarp - 1) / kWarp;
+  int units = 0;
+  for (int ct = 0; ct < tiles; ++ct) units += nr - kWarp * ct;
+  T tc[NI > 0 ? NI : 1];
+  int loaded = -1;
+  for (;;) {
+    int u = 0;
+    if (l == 0) u = atomicAdd(next, kGramRun);
+    u = __shfl_sync(0xffffffffu, u, 0);
+    if (u >= units) break;
+    int ct = 0, r = u;
+    while (r >= nr - kWarp * ct) {
+      r -= nr - kWarp * ct;
+      ++ct;
+    }
+    r += kWarp * ct;
+    for (const int end = min(u + kGramRun, units); u < end; ++u) {
+      const int c = kWarp * ct + l;
+      const int cc = c < nr ? c : nr - 1;  // in bounds; the entry is dropped
+      T g;
+      if constexpr (NI > 0) {
+        if (ct != loaded) {
+#pragma unroll
+          for (int i = 0; i < NI; ++i) tc[i] = X[i * nr + cc];
+          loaded = ct;
+        }
+        g = gram_entry<NI>(tc, X, nr, r);
+      } else {
+        g = tree_dot<T>(ni, [&](int i) { return X[i * nr + cc] * X[i * nr + r]; });
+      }
+      if (c <= r) S[tri(r) + c] = S[tri(r) + c] - g;
+      if (++r == nr) r = kWarp * ++ct;
+    }
+  }
+}
+
+// The reduced block's Cholesky in the wide body: S's lower triangle
+// (packed), shifted by d and equilibrated, factored in place across the
+// CTA, thread i owning row i (nn <= kWideThreads). Column k computes only
+// its rows i >= k, its pivot passing through `slot`; two __syncthreads a
+// column. Every thread calls it; each returns the pivot extrema over rows
+// < n_real.
+template <typename T>
+__device__ void chol_packed(T* S, int nn, int n_real, T d, T* sc, T* slot, int t, T& dmin,
+                            T& dmax) {
+  if (t < nn) sc[t] = T(1) / sqrt(nan_max(S[tri(t) + t] + d, T(1e-30)));
+  __syncthreads();
+  dmin = inf_val<T>();
+  dmax = -inf_val<T>();
+  T* Si = S + tri(t < nn ? t : 0);
+  for (int k = 0; k < nn; ++k) {
+    const bool row = t >= k && t < nn;
+    T v = T(0);
+    if (row) {
+      const T* Sk = S + tri(k);
+      v = (Si[k] + (t == k ? T(1) : T(0)) * d) * sc[t] * sc[k];
+      if (k) v = v - tree_dot<T>(k, [&](int j) { return Si[j] * Sk[j]; });
+      if (t == k) *slot = v;
+    }
+    __syncthreads();
+    const T dk = sqrt(*slot);
+    if (k < n_real) {
+      dmin = nan_min(dmin, dk);
+      dmax = nan_max(dmax, dk);
+    }
+    const T inv = T(1) / dk;
+    if (row) Si[k] = v * inv * (t > k ? T(1) : T(0)) + (t == k ? T(1) : T(0)) * dk;
+    __syncthreads();
+  }
+}
+
+// Replaces _factor_kernel (pallas_kkt.py:160) at wide shapes: wherever a
+// full tile of lanes (one 32-byte sector of each element) does not fit in
+// shared memory, factor_kernel above gives up its point, and this body runs
+// instead (the launcher's choice, factor_launch).
+//
+// Bound: bytes, and close to operations. At the 40x10 Radau orbit's padded
+// shape (nb=40, ni_p=40, nr_p=128) in float64 at B=1024 it must move 4.69
+// GB, 1.40 ms at 3.35 TB/s (1.09 ms at the real sizes (40, 37, 126)), and
+// do 44 G operations, 60% of them the Gram update of S's lower triangle:
+// 0.66 ms at 67 TFLOP/s, 1.3 ms at the scalar float64 rate of 34.
+//
+// Design: it replaces a lane tile of one warp per lane, which at that shape
+// held one lane (187,552 bytes) in a CTA of 32 threads, one warp an SM,
+// every dependent chain of the factorization on that one warp (815 ms a
+// launch on an H100 80GB HBM3 at 700 W). Here a CTA of kWideWarps warps
+// factors one lane, in roles that overlap. The team (the last warp, rows w
+// and w + 32 of worker w) factors interior block b + 1 with its retry
+// ladder while the seven working warps solve block b: a thread per column
+// solves t = L^{-1} sc K_ir, and the other working threads start block
+// b + 2's and b + 1's loads (cp.async) and store L_i[b] and sc_i[b]; then
+// the column threads solve X_ir = sc L^{-T} t from t into device memory
+// while the others start the Gram update of S's lower triangle (8,256
+// entries at nr_p = 128), dealt out from a counter in runs of units, which
+// the column threads join when they are done. At the built interior sizes
+// (24, 32, 40) the Cholesky and the sweeps are compile-time bodies with
+// the column in registers, and the Gram update keeps column c of t in
+// registers; NI = 0 takes any other size with run-time loops over
+// tree_dot in shared memory. (Run-time loops at NI = 40 measured 2-3 times
+// slower than the unrolled bodies, and a Cholesky that the other warps
+// wait for, 40% of each block.) The reduced block is factored at the end
+// across the CTA (chol_packed), from S saved to s_scr when retries are
+// allowed. Every sum is the reference's tree. L_r's strict upper part is
+// not computed: the plain version writes v / dk * 0 there, which is 0 / dk
+// wherever v is finite (every accepted lane of finite input), and that is
+// what is written. Where three K_ii and two K_ir buffers do not fit (wide
+// interiors in float64), one of each is loaded at the top of each block
+// and the team factors it before the others go on. A float64 CTA takes up
+// to 255 registers (its shared memory leaves room for one CTA an SM); a
+// float32 CTA 128, so that two fit. One lane a CTA reads and writes 8 (or
+// 4) bytes of each 32-byte sector, each access a request of its own; that,
+// and eight warps to hide every latency, bound it now: 21.6-22.0 ms a
+// launch at the orbit's shape in float64 on B=1024 with one attempt (H100
+// 80GB HBM3, 700 W), 5% of the real sizes' bound.
+template <typename T, int NI>
+__global__ void __launch_bounds__(kWideThreads, sizeof(T) == 4 ? 2 : 1)
+factor_kernel_wide(const T* __restrict__ kii, const T* __restrict__ kir,
+                   const T* __restrict__ krr, const T* __restrict__ delta, T* __restrict__ li,
+                   T* __restrict__ sci, T* __restrict__ xir, T* __restrict__ lr,
+                   T* __restrict__ scr, T* __restrict__ piv, T* __restrict__ dblk,
+                   T* __restrict__ s_scr, int nb, int ni_rt, int nr, int ni_real, int nr_real,
+                   int Bp, T rtol, T floor_d, int attempts, int pipe) {
+  const int ni = NI > 0 ? NI : ni_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const WideLayout lay(ni, nr, pipe != 0);
+  const int t = threadIdx.x, l = t % kWarp;
+  const bool team = t >= kTeam0;
+  const int ncol = (nr + kWarp - 1) / kWarp * kWarp;  // column warps' threads; then the others'
+  const int lane = blockIdx.x;
+  T* S = smem + lay.s;
+  T* scR = smem + lay.scr;
+  T* slot = smem + lay.slot;
+  int* next = reinterpret_cast<int*>(slot + 1);
+  auto A_of = [&](int b) { return smem + lay.a + (b % lay.na) * ni * lay.ldi; };
+  auto sc_of = [&](int b) { return smem + lay.sc + (b % lay.na) * ni; };
+  auto X_of = [&](int b) { return smem + lay.x + (b % lay.nx) * ni * nr; };
+  // block b's K_ii or K_ir into its buffer, asynchronously, by threads [t0, t0 + nt)
+  auto load_kii = [&](int b, int t0, int nt) {
+    const T* g = kii + (size_t)b * ni * ni * Bp + lane;
+    T* A = A_of(b);
+    for (int e = t - t0; e < ni * ni; e += nt)
+      copy_async(A + (e / ni) * lay.ldi + e % ni, g + (size_t)e * Bp);
+  };
+  auto load_kir = [&](int b, int t0, int nt) {
+    const T* g = kir + (size_t)b * ni * nr * Bp + lane;
+    T* X = X_of(b);
+    for (int e = t - t0; e < ni * nr; e += nt) copy_async(X + e, g + (size_t)e * Bp);
+  };
+
+  // S = K_rr + base_d I (its lower triangle), accumulated below in Gram form
+  const T base_d = delta[lane];
+  for (int e = t; e < nr * nr; e += kWideThreads) {
+    const int r = e / nr, c = e % nr;
+    if (c <= r) S[tri(r) + c] = krr[(size_t)e * Bp + lane] + (r == c ? T(1) : T(0)) * base_d;
+  }
+  // the team's record of the interior pivots (its first thread writes it out)
+  T piv_min = inf_val<T>(), piv_max = -inf_val<T>();
+  T d_up = base_d;
+  T ok_all = T(1);
+  // block b's interior Cholesky with the retry ladder, by the team's warp
+  auto chol = [&](int b) {
+    T* A = A_of(b);
+    T* sc = sc_of(b);
+    T dmin, dmax;
+    auto attempt = [&](T d) {
+      if constexpr (NI > 0)
+        chol_interior<NI>(A, sc, slot, ni_real, d, l, dmin, dmax);
+      else
+        chol_rt(A, lay.ldi, ni, ni_real, d, sc, slot, l, dmin, dmax);
+    };
+    attempt(base_d);
+    T d = base_d;
+    for (int a = 0; a < attempts - 1; ++a) {
+      if (!passes(dmin, dmax, rtol)) {
+        d = d < floor_d ? floor_d : d * T(10);
+        reload_lane(A, lay.ldi, kii + (size_t)b * ni * ni * Bp, ni, ni, lane, Bp, l);
+        attempt(d);
+      }
+    }
+    // block-local acceptance: each block judged at its own final delta
+    ok_all = ok_all * (passes(dmin, dmax, rtol) ? T(1) : T(0));
+    piv_min = nan_min(piv_min, dmin);
+    piv_max = nan_max(piv_max, dmax);
+    d_up = nan_max(d_up, d);
+    if (l == 0) dblk[(size_t)b * Bp + lane] = d;
+  };
+
+  if (pipe && nb > 0) {
+    load_kii(0, 0, kWideThreads);
+    load_kir(0, 0, kWideThreads);
+    if (nb > 1) load_kii(1, 0, kWideThreads);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (team) chol(0);
+  }
+  for (int b = 0; b < nb; ++b) {
+    if (!pipe) {
+      __syncthreads();  // block b - 1 has left the one buffer
+      load_kii(b, 0, kWideThreads);
+      load_kir(b, 0, kWideThreads);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // block b is factored (pipelined) or loaded; block b - 1 is done
+    if (!pipe) {
+      if (team) chol(b);
+      __syncthreads();
+    }
+    if (team) {
+      if (pipe && b + 1 < nb) chol(b + 1);
+      continue;
+    }
+    T* A = A_of(b);
+    T* sc = sc_of(b);
+    T* X = X_of(b);
+    if (t < ncol) {
+      if (t < nr) fwd_col<NI>(A, lay.ldi, sc, X, ni, nr, t);
+    } else {
+      if (pipe && b + 2 < nb) load_kii(b + 2, ncol, kTeam0 - ncol);
+      if (pipe && b + 1 < nb) load_kir(b + 1, ncol, kTeam0 - ncol);
+      T* li_b = li + (size_t)b * ni * ni * Bp + lane;
+      T* sci_b = sci + (size_t)b * ni * Bp + lane;
+      for (int e = t - ncol; e < ni * ni; e += kTeam0 - ncol)
+        li_b[(size_t)e * Bp] = A[(e / ni) * lay.ldi + e % ni];
+      for (int e = t - ncol; e < ni; e += kTeam0 - ncol) sci_b[(size_t)e * Bp] = sc[e];
+      if (t == ncol) *next = 0;
+    }
+    named_sync(kBarWork, kTeam0);  // t is complete
+    T* xir_b = xir + (size_t)b * ni * nr * Bp + lane;
+    if constexpr (NI > 0) {
+      // the column threads solve X_ir from t first, then join the Gram update
+      if (t < nr) bwd_col<NI>(A, lay.ldi, sc, X, ni, nr, t, xir_b, Bp);
+      gram_lower<NI>(X, S, ni, nr, next, l);
+    } else {
+      gram_lower<NI>(X, S, ni, nr, next, l);
+      named_sync(kBarWork, kTeam0);  // every entry of t is read before the solve overwrites it
+      if (t < nr) bwd_col<NI>(A, lay.ldi, sc, X, ni, nr, t, xir_b, Bp);
+    }
+  }
+  __syncthreads();
+
+  // reduced block: the base delta is already in S; retries add extra and
+  // refactor from the saved S (each thread saves and reloads its own entries)
+  auto each_lower = [&](auto&& f) {
+    for (int e = t; e < nr * nr; e += kWideThreads) {
+      const int r = e / nr, c = e % nr;
+      if (c <= r) f(e, tri(r) + c);
+    }
+  };
+  if (attempts > 1) each_lower([&](int e, int s) { s_scr[(size_t)e * Bp + lane] = S[s]; });
+  T dmin, dmax;
+  chol_packed(S, nr, nr_real, T(0), scR, slot, t, dmin, dmax);
+  T d = T(0);
+  for (int a = 0; a < attempts - 1; ++a) {
+    if (!passes(dmin, dmax, rtol)) {
+      d = d < floor_d ? floor_d : d * T(10);
+      each_lower([&](int e, int s) { S[s] = s_scr[(size_t)e * Bp + lane]; });
+      __syncthreads();
+      chol_packed(S, nr, nr_real, d, scR, slot, t, dmin, dmax);
+    }
+  }
+  if (t == kTeam0) {
+    const bool ok_r = passes(dmin, dmax, rtol);
+    dblk[(size_t)nb * Bp + lane] = base_d + d;
+    const T pmin = nan_min(piv_min, dmin);
+    const T pmax = nan_max(piv_max, dmax);
+    const bool finite = isfinite(pmin) && isfinite(pmax);
+    piv[lane] = finite ? pmin : T(NAN);
+    piv[(size_t)Bp + lane] = finite ? pmax : T(NAN);
+    piv[(size_t)2 * Bp + lane] = nan_max(d_up, base_d + d);
+    piv[(size_t)3 * Bp + lane] = ok_all * (ok_r ? T(1) : T(0));
+  }
+  for (int e = t; e < nr * nr; e += kWideThreads) {
+    const int r = e / nr, c = e % nr;
+    lr[(size_t)e * Bp + lane] = c <= r ? S[tri(r) + c] : T(0) / S[tri(c) + c];
+  }
+  for (int e = t; e < nr; e += kWideThreads) scr[(size_t)e * Bp + lane] = scR[e];
+}
+
+// ---------------------------------------------------------------------------
 // apply_down: one thread per (lane, block)
 // ---------------------------------------------------------------------------
 
@@ -740,23 +1202,11 @@ apply_down_kernel(const T* __restrict__ li, const T* __restrict__ sci,
 // interior rows across warps
 // ---------------------------------------------------------------------------
 
-// Offset of row k in a packed lower triangle.
-__host__ __device__ constexpr int tri(int k) { return k * (k + 1) / 2; }
-
 // Shared memory of an apply_up CTA, in elements: for a built reduced size
 // NR, the packed lower triangle of L_r, sc_r and r_red (then x_r) of its
 // 32 lanes; for the run-time body (NR = 0), x_r alone.
 __host__ __device__ constexpr int up_smem_elems(int NR, int nr) {
   return NR > 0 ? (tri(NR) + 2 * NR) * kWarp : nr * kWarp;
-}
-
-// One element from device memory into shared memory, asynchronously
-// (cp.async); cp.async.wait_all then waits for all of this thread's.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "n"(sizeof(T)));
 }
 
 // Replaces _apply_up_kernel (pallas_kkt.py:403).
@@ -893,7 +1343,7 @@ int dispatch_n(int n, int max_n, F&& fn) {
 }
 
 // Lanes per factor CTA: tile_lanes, or fewer where that tile does not fit
-// in shared memory (cuda_kkt.factor_tile_lanes); 0 if one lane does not.
+// in shared memory; 0 if one lane does not.
 template <typename T>
 int factor_tile(int ni_p, int nr_p) {
   const int lane_bytes = FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
@@ -901,16 +1351,68 @@ int factor_tile(int ni_p, int nr_p) {
   return fit < tile_lanes<T>() ? fit : tile_lanes<T>();
 }
 
+// Whether the wide body's pipelined layout fits in shared memory.
+template <typename T>
+bool wide_pipe(int ni_p, int nr_p) {
+  return WideLayout(ni_p, nr_p, true).elems * (int)sizeof(T) <= kSmemMax;
+}
+
+// The factor's launch at a shape, into fl[4]: the body (0, the lane tile;
+// 1, the wide body), warps a CTA, lanes a CTA and the CTA's shared memory
+// in bytes (cuda_kkt.factor_launch). The lane tile runs wherever a full
+// tile (one 32-byte sector of each element) fits in shared memory; every
+// other shape of which one lane fits the lane tile's layout takes the wide
+// body. cudaErrorInvalidValue for a shape the factor does not take. The
+// launcher launches exactly this.
+template <typename T>
+int factor_launch(int ni_p, int nr_p, int Bp, int* fl) {
+  if (nr_p < 1 || nr_p > kMaxReduced || ni_p < 1 || ni_p > kMaxInterior || Bp < 1)
+    return (int)cudaErrorInvalidValue;
+  const int TL = factor_tile<T>(ni_p, nr_p);
+  if (TL < 1) return (int)cudaErrorInvalidValue;
+  const bool wide = TL < tile_lanes<T>();
+  fl[0] = wide ? 1 : 0;
+  fl[1] = wide ? kWideWarps : TL;
+  fl[2] = wide ? 1 : TL;
+  fl[3] = (wide ? WideLayout(ni_p, nr_p, wide_pipe<T>(ni_p, nr_p)).elems
+                : TL * FactorLayout(ni_p, nr_p).lane_elems) * (int)sizeof(T);
+  return (int)cudaSuccess;
+}
+
+// Run fn(Int<NI>{}) for the interior sizes the wide body is built for,
+// fn(Int<0>{}) (the run-time size) for any other.
+template <typename F>
+int dispatch_wide(int n, F&& fn) {
+  switch (n) {
+    case 24: return fn(Int<24>{});
+    case 32: return fn(Int<32>{});
+    case 40: return fn(Int<40>{});
+    default: return fn(Int<0>{});
+  }
+}
+
 template <typename T>
 int launch_factor(const T* kii, const T* kir, const T* krr, const T* delta, T* li, T* sci,
                   T* xir, T* lr, T* scr, T* piv, T* dblk, T* s_scr, int nb, int ni_p, int nr_p,
                   int ni_real, int nr_real, int Bp, double rtol, double floor_d, int attempts,
                   cudaStream_t stream) {
-  if (nr_p < 1 || nr_p > kMaxReduced || ni_p < 1 || ni_p > kMaxInterior || Bp < 1)
-    return (int)cudaErrorInvalidValue;
-  const int TL = factor_tile<T>(ni_p, nr_p);
-  if (TL < 1) return (int)cudaErrorInvalidValue;
-  const int smem = TL * FactorLayout(ni_p, nr_p).lane_elems * (int)sizeof(T);
+  int fl[4];
+  if (int e = factor_launch<T>(ni_p, nr_p, Bp, fl)) return e;
+  const int smem = fl[3];
+  if (fl[0] == 1) {
+    return dispatch_wide(ni_p, [&](auto nic) {
+      constexpr int NI = decltype(nic)::value;
+      auto kernel = factor_kernel_wide<T, NI>;
+      cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<Bp, kWideThreads, smem, stream>>>(
+          kii, kir, krr, delta, li, sci, xir, lr, scr, piv, dblk, s_scr, nb, ni_p, nr_p, ni_real,
+          nr_real, Bp, T(rtol), T(floor_d), attempts, wide_pipe<T>(ni_p, nr_p) ? 1 : 0);
+      return (int)cudaGetLastError();
+    });
+  }
+  const int TL = fl[2];
   return dispatch_n(ni_p, kMaxInterior, [&](auto nic) {
     constexpr int NI = decltype(nic)::value;
     auto kernel = factor_kernel<T, NI>;
@@ -988,8 +1490,9 @@ int launch_apply_up(const T* lr, const T* scr, const T* rred, const T* xir, cons
 }  // namespace
 
 // Plain C launchers (bound with ctypes): raw pointers, sizes and the
-// stream; each returns the cudaError_t of its launch. bak_apply_up_launch_*
-// returns apply_up's launch at a shape (up_launch) without launching.
+// stream; each returns the cudaError_t of its launch. bak_factor_launch_*
+// and bak_apply_up_launch_* return the factor's (factor_launch) and
+// apply_up's (up_launch) launch at a shape without launching.
 #define BAK_LAUNCHERS(T, SUF)                                                    \
   extern "C" int bak_factor_##SUF(                                               \
       const T* kii, const T* kir, const T* krr, const T* delta, T* li, T* sci,   \
@@ -1017,6 +1520,9 @@ int launch_apply_up(const T* lr, const T* scr, const T* rred, const T* xir, cons
   extern "C" int bak_apply_up_launch_##SUF(int nb, int ni_p, int nr_p, int Bp,   \
                                            int* up) {                            \
     return up_launch(nb, ni_p, nr_p, Bp, (int)sizeof(T), up);                    \
+  }                                                                              \
+  extern "C" int bak_factor_launch_##SUF(int ni_p, int nr_p, int Bp, int* fl) {  \
+    return factor_launch<T>(ni_p, nr_p, Bp, fl);                                 \
   }
 
 BAK_LAUNCHERS(float, f32)

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "apply_down": [_P] * 7 + [_I] * 4 + [_P],
     "apply_up": [_P] * 7 + [_I] * 4 + [_P],
     "apply_up_launch": [_I] * 4 + [_P],
+    "factor_launch": [_I] * 3 + [_P],
 }
 
 

@@ -22,7 +22,9 @@ tensors runs the plain version (``*_ref``), which computes exactly what
 the Pallas body computes, in the same summation order; given CUDA tensors
 it launches the kernel or raises. Each kernel launch adds one to its entry
 in :data:`LAUNCHES` and one to its padded shape ``(nb, ni_p, nr_p)`` in
-:data:`LAUNCH_SHAPES`.
+:data:`LAUNCH_SHAPES`; each factor launch also adds one to its body in
+:data:`FACTOR_BODIES` and, for the wide body, to the recording's counter
+``kkt.factor_wide`` (``utils.profiling.count``).
 
 Every kernel takes padded interior blocks up to :data:`MAX_INTERIOR` and
 reduced blocks up to :data:`MAX_REDUCED`; the wrappers raise
@@ -32,9 +34,14 @@ apply_down kernels have compile-time bodies for the padded interior sizes
 in :data:`KERNEL_SIZES`, apply_up for padded reduced blocks of those
 sizes; every other size selects the kernel's run-time body
 (the same sums, with the per-lane scratch in shared memory). The factor
-keeps a tile of lanes in shared memory, as many as fit
-(:func:`factor_tile_lanes`); :func:`apply_up_launch` reads apply_up's
-body, warps and shared memory from its launcher. :func:`kernel_cost`
+has two bodies: where a full tile of lanes (one 32-byte sector of each
+element) fits in shared memory, one warp per lane and the tile per CTA;
+elsewhere (wide blocks) the wide body, one lane per CTA of
+:data:`WIDE_WARPS` warps, with compile-time bodies for the padded
+interiors 24, 32 and 40 (:func:`factor_tile_lanes`,
+:func:`factor_lane_bytes`). :func:`factor_launch` and
+:func:`apply_up_launch` read each kernel's body, warps and shared memory
+from its launcher. :func:`kernel_cost`
 counts the bytes and operations each kernel must move and do, and the
 least time an H100 could take for them.
 
@@ -66,38 +73,80 @@ MAX_REDUCED = 128  # widest padded reduced block the kernels take
 # padded sizes with compile-time bodies: the interiors of the factor and
 # apply_down, apply_up's reduced block
 KERNEL_SIZES = (8, 16, 24, 32)
+WIDE_WARPS = 8  # warps of a wide-body factor CTA, which factors one lane
 SMEM_MAX = 232_448  # shared memory one H100 CTA may opt into (227 KB)
 
 LAUNCHES = {"factor": 0, "apply_down": 0, "apply_up": 0}
 LAUNCH_SHAPES = {k: Counter() for k in LAUNCHES}  # {shape: launches} per kernel
+FACTOR_BODIES = Counter()  # {"lane_tile" or "wide": factor launches}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_SHAPES[k].clear()
+    FACTOR_BODIES.clear()
 
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def factor_lane_bytes(ni_p: int, nr_p: int, dtype) -> int:
-    """Shared memory one lane of the factor holds: K_ii/L (rows padded to
-    ni_p + 1), sc_i, K_ir/X, S/L_r (rows padded to nr_p + 1), sc_r and a
-    4-element slot (``FactorLayout`` in the CUDA source)."""
+def _factor_body(ni_p: int, nr_p: int, dtype):
+    """(body, lanes per CTA, shared memory of one lane) of the factor at a
+    padded shape, as the CUDA launcher (``factor_launch``) picks them. The
+    lane tile's lane holds K_ii/L (rows padded to ni_p + 1), sc_i, K_ir/X,
+    S/L_r (rows padded to nr_p + 1), sc_r and a 4-element slot
+    (``FactorLayout``); its CTA one 32-byte sector of lanes (8 float32 or 4
+    float64). Where that tile does not fit in :data:`SMEM_MAX`, the wide
+    body runs: one lane per CTA, holding three buffers of K_ii/L and sc_i
+    and two of K_ir/t (one of each where those do not fit), S's packed
+    lower triangle, sc_r and the slot (``WideLayout``). A shape of which one
+    lane-tile lane does not fit is refused (body ``None``, 0 lanes)."""
     item = torch.empty((), dtype=dtype).element_size()
-    return (ni_p * (ni_p + 1) + ni_p + ni_p * nr_p + nr_p * (nr_p + 1) + nr_p + 4) * item
+    tile = (ni_p * (ni_p + 1) + ni_p + ni_p * nr_p + nr_p * (nr_p + 1) + nr_p + 4) * item
+    full = 32 // item
+    fit = SMEM_MAX // tile
+    if fit >= full:
+        return "lane_tile", full, tile
+    if fit < 1:
+        return None, 0, tile
+    wide = lambda na, nx: (na * (ni_p * (ni_p + 1) + ni_p) + nx * ni_p * nr_p
+                           + nr_p * (nr_p + 1) // 2 + nr_p + 4) * item
+    return "wide", 1, wide(3, 2) if wide(3, 2) <= SMEM_MAX else wide(1, 1)
+
+
+def factor_lane_bytes(ni_p: int, nr_p: int, dtype) -> int:
+    """Shared memory one lane of the factor holds in the body its shape
+    takes (:func:`_factor_body`); for a refused shape, the lane tile's."""
+    return _factor_body(ni_p, nr_p, dtype)[2]
 
 
 def factor_tile_lanes(ni_p: int, nr_p: int, dtype) -> int:
     """Lanes per factor CTA, as the CUDA launcher picks them: one 32-byte
-    sector of each element (8 float32 or 4 float64 lanes), or fewer where
-    that tile would not fit in :data:`SMEM_MAX`; 0 where one lane does not
-    fit, a shape the launcher refuses (a float64 lane at (64, 128) takes
-    232,480 bytes, 32 more than a CTA may hold)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    return min(32 // item, SMEM_MAX // factor_lane_bytes(ni_p, nr_p, dtype))
+    sector of each element (8 float32 or 4 float64 lanes) in the lane-tile
+    body, 1 in the wide body (where that tile would not fit in
+    :data:`SMEM_MAX`); 0 where one lane-tile lane does not fit, a shape the
+    launcher refuses (a float64 lane at (64, 128) takes 232,480 bytes, 32
+    more than a CTA may hold)."""
+    return _factor_body(ni_p, nr_p, dtype)[1]
+
+
+_FACTOR_LAUNCH: dict = {}  # factor_launch's answer per (ni_p, nr_p, dtype)
+
+
+def factor_launch(ni_p: int, nr_p: int, lanes: int, dtype) -> dict:
+    """The factor's launch at a padded shape, read from the kernel library
+    (so it needs the CUDA toolkit): the launcher's own choice, which it
+    launches. ``body``, ``"lane_tile"`` or ``"wide"``; ``warps`` and
+    ``lanes`` per CTA; ``smem``, the CTA's shared memory in bytes. Raises
+    ``ValueError`` for a shape the launcher refuses."""
+    fl = (ctypes.c_int * 4)()
+    rc = _kernel("factor_launch", dtype)(ni_p, nr_p, lanes, fl)
+    if rc != 0:
+        raise ValueError(f"the factor takes no launch at ni_p={ni_p}, nr_p={nr_p}, "
+                         f"lanes={lanes}: cudaError_t {rc}")
+    return {"body": ("lane_tile", "wide")[fl[0]], "warps": fl[1], "lanes": fl[2], "smem": fl[3]}
 
 
 def apply_up_launch(nb: int, ni_p: int, nr_p: int, lanes: int, dtype) -> dict:
@@ -444,6 +493,12 @@ def factor_blocks(
         nb, ni_p, nr_p, int(ni_real), int(nr_real), BT,
         float(pivot_rtol), float(delta_floor), int(attempts),
     )
+    key = (ni_p, nr_p, dt)
+    if key not in _FACTOR_LAUNCH:
+        _FACTOR_LAUNCH[key] = factor_launch(ni_p, nr_p, BT, dt)["body"]
+    FACTOR_BODIES[_FACTOR_LAUNCH[key]] += 1
+    if _FACTOR_LAUNCH[key] == "wide":
+        count("kkt.factor_wide")
     return out
 
 

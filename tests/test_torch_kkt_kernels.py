@@ -230,6 +230,35 @@ def test_tree_acc_builds_the_tree_sum_order():
         assert _tree_acc([t.s for t in terms], levels) == _tree_sum(terms).s, n
 
 
+def test_tree_dot_builds_the_tree_sum_order():
+    """The wide factor body's run-time dots (``tree_dot``) sum runs of eight
+    terms as perfect trees, push them into a counter whose level 0 holds
+    eight terms, and fold the n % 8 terms left over below them as TreeAcc
+    folds its lowest levels: for every length the kernels sum, exactly the
+    parenthesization of ``_tree_sum``, checked on symbols."""
+    levels = int(re.search(r"kLevels = (\d+);", _build.SOURCE.read_text()).group(1))
+    for n in range(1, cuda_kkt.MAX_REDUCED):
+        terms = [f"t{i}" for i in range(n)]
+        m = n // 8
+        runs = [_tree_acc(terms[8 * q:8 * q + 8], 4) for q in range(m)]
+        tail = terms[8 * m:]
+        acc = _tree_acc(tail, levels) if tail else None
+        st, k = [None] * levels, 0  # the counter of runs, as TreeAcc pushes
+        for p in runs:
+            carry, placed = p, False
+            for lv in range(levels):
+                if not placed:
+                    if (k >> lv) & 1:
+                        carry = f"({st[lv]}+{carry})"
+                    else:
+                        st[lv], placed = carry, True
+            k += 1
+        for lv in range(levels):
+            if (k >> lv) & 1:
+                acc = st[lv] if acc is None else f"({st[lv]}+{acc})"
+        assert acc == _tree_sum([_Sym(t) for t in terms]).s, n
+
+
 class _Sym:
     """A term whose sum records its parenthesization."""
 
@@ -384,23 +413,66 @@ def test_apply_down_lane_bytes_match_the_hand_count():
     [
         (16, 32, torch.float32, 8),  # the bench shapes: 7,568 bytes a lane
         (16, 32, torch.float64, 4),
-        (32, 64, torch.float32, 7),  # 29,456 bytes a lane: 8 would take 235 KB
-        (32, 64, torch.float64, 3),
-        (64, 64, torch.float32, 4),  # 50,192 bytes a lane
-        (64, 64, torch.float64, 2),
-        (40, 128, torch.float32, 2),  # the 40x10 Radau orbit: 93,776 bytes a lane
-        (40, 128, torch.float64, 1),  # 187,552 bytes a lane
-        (24, 72, torch.float32, 7),  # the 15x8 LGL orbit
+        (32, 64, torch.float32, 1),  # a lane-tile lane takes 29,456 bytes: 8 would take 235 KB
+        (32, 64, torch.float64, 1),
+        (64, 64, torch.float32, 1),  # 50,192 bytes a lane-tile lane
+        (64, 64, torch.float64, 1),
+        (40, 128, torch.float32, 1),  # the 40x10 Radau orbit: 94,672 bytes in the wide body
+        (40, 128, torch.float64, 1),  # 189,344 bytes
+        (24, 72, torch.float32, 1),  # the 15x8 LGL orbit
         (64, 128, torch.float32, 1),  # the widest a float32 lane takes
     ],
 )
 def test_factor_tile_shrinks_to_fit_shared_memory(ni_p, nr_p, dtype, lanes):
-    """Every shape the kernels take runs: where a full tile of lanes does
-    not fit in the 227 KB of shared memory, the factor takes fewer lanes per
-    CTA (the CUDA launcher's own count, ``factor_tile``)."""
+    """Every shape the kernels take runs: where a full tile of lanes (one
+    32-byte sector of each element) does not fit in the 227 KB of shared
+    memory, the factor takes its wide body, one lane per CTA (the CUDA
+    launcher's own choice, ``factor_launch``)."""
     assert cuda_kkt.factor_tile_lanes(ni_p, nr_p, dtype) == lanes
     assert lanes * cuda_kkt.factor_lane_bytes(ni_p, nr_p, dtype) <= cuda_kkt.SMEM_MAX
     assert cuda_kkt.factor_lane_bytes(16, 32, torch.float32) == 1892 * 4
+
+
+@pytest.mark.parametrize(
+    "ni_p, nr_p, dtype, pipelined",
+    [(40, 128, torch.float64, True), (40, 128, torch.float32, True), (32, 64, torch.float64, True),
+     (64, 120, torch.float64, False)],
+    ids=["orbit-f64", "orbit-f32", "goddard-f64", "one-buffer-f64"],
+)
+def test_wide_factor_shared_memory_matches_the_hand_count(ni_p, nr_p, dtype, pipelined):
+    """The wide body's CTA holds, element by element: three buffers of K_ii
+    (rows padded to ni_p + 1) and of sc_i and two of K_ir where they fit in
+    227 KB, else one of each (at (64, 120) in float64 three and two would
+    take 283,328 bytes); the lower triangle of S, diagonal included; sc_r;
+    a 4-element slot. At the orbit's (40, 128) in float64: 23,668 elements,
+    189,344 bytes, against 187,552 for the lane tile's one lane."""
+    item = torch.empty((), dtype=dtype).element_size()
+    K_ii, sc_i, K_ir = ni_p * (ni_p + 1), ni_p, ni_p * nr_p
+    S = sum(1 for r in range(nr_p) for c in range(nr_p) if c <= r)
+    rest = S + nr_p + 4
+    three = 3 * (K_ii + sc_i) + 2 * K_ir + rest
+    one = K_ii + sc_i + K_ir + rest
+    elems = three if pipelined else one
+    assert cuda_kkt.factor_lane_bytes(ni_p, nr_p, dtype) == elems * item
+    assert (three * item <= cuda_kkt.SMEM_MAX) == pipelined
+    if (ni_p, nr_p) == (40, 128):
+        assert elems == 23_668
+    assert cuda_kkt.factor_tile_lanes(ni_p, nr_p, dtype) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernel_path_takes_the_shapes_it_took_before(dtype):
+    """The wide body widens no shape: ``kernel_path`` takes the kernels at
+    exactly the padded shapes where one lane of the lane tile's layout fits
+    in a CTA's shared memory, as before the wide body."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for ni_p in range(8, cuda_kkt.MAX_INTERIOR + 9, 8):
+        for nr_p in range(8, cuda_kkt.MAX_REDUCED + 9, 8):
+            lane = (ni_p * (ni_p + 1) + ni_p + ni_p * nr_p + nr_p * (nr_p + 1) + nr_p + 4) * item
+            took = (ni_p <= cuda_kkt.MAX_INTERIOR and nr_p <= cuda_kkt.MAX_REDUCED
+                    and lane <= cuda_kkt.SMEM_MAX)
+            path = cuda_kkt.kernel_path(np.zeros((2, ni_p)), np.zeros(nr_p), dtype, "cuda")
+            assert path == ("pallas" if took else "block"), (ni_p, nr_p)
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +536,8 @@ def _lane_rel_err(got, want):
 # (nb, ni, nr, lanes) of the ragged card cases
 RAGGED_CASES = [(3, 20, 37, 1001), (5, 16, 25, 333), (4, 5, 7, 77), (3, 30, 60, 45),
                 (3, 37, 45, 101), (3, 64, 64, 19), (40, 5, 7, 129), (4, 12, 13, 65),
-                (3, 9, 21, 97), (40, 37, 126, 257), (12, 25, 60, 1001), (15, 24, 67, 333)]
+                (3, 9, 21, 97), (40, 37, 126, 257), (12, 25, 60, 1001), (15, 24, 67, 333),
+                (3, 60, 118, 33)]
 
 
 @pytest.mark.gpu
@@ -509,14 +582,16 @@ def test_card_cases_run_every_apply_up_body(cuda):
     "nb, ni, nr, lanes", RAGGED_CASES,
     ids=["ni24_nr40", "ni16_nr32", "ni8_nr8", "ni32_nr64", "ni40_nr48", "ni64_nr64",
          "nb40_ni8_nr8", "ni16_nr16", "ni16_nr24", "orbit40x10_ni40_nr128", "goddard_ni32_nr64",
-         "orbit15x8_ni24_nr72"],
+         "orbit15x8_ni24_nr72", "ni64_nr120"],
 )
 def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, attempts, nb, ni,
                                                                   nr, lanes):
     """The three kernels at every built interior size (8, 16, 24, 32), at
-    run-time sizes (40, 64), at reduced tiles of lanes (ni_p=32 or 64 with
-    nr_p=64, ni_p=40 with nr_p=128), at every apply_up body (reduced sizes
-    8, 16, 24, 32 and the run-time 40, 48, 64, 72, 128), at the padded
+    run-time sizes (40, 64), at both factor bodies (the lane tile where a
+    full tile fits, the wide body at ni_p=32 or 64 with nr_p=64, ni_p=40
+    with nr_p=128, ni_p=24 with nr_p=72, and ni_p=64 with nr_p=120, where
+    a float64 CTA holds one buffer of each block), at every apply_up body (reduced
+    sizes 8, 16, 24, 32 and the run-time 40, 48, 64, 72, 128), at the padded
     shapes of the repo's Radau and multi-phase problems (the 40x10 Radau
     orbit transfer, the 3-phase Goddard rocket, the 15x8 LGL orbit), with
     40 blocks (320 interior rows over the 8 warps of an apply_up CTA) and at lane counts that are multiples of
@@ -526,6 +601,26 @@ def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, a
     every fifth lane's block 2 one at -50 (rejected at every rung).
     Tolerance per lane: 1e-4 in float32, 1e-11 in float64
     (chip_smoke.py's)."""
+    _ragged_case(cuda, dtype, attempts, nb, ni, nr, lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attempts", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_wide_factor_reduced_retry_ladder_at_the_orbit_shape(cuda, dtype, attempts):
+    """The ragged case at the 40x10 Radau orbit's shape (40, 37, 126), where
+    the wide factor body runs, with lane 1's reduced block indefinite: lane
+    1 couples to no interior (K_ir = 0, so S = K_rr) and its K_rr has one
+    eigenvalue at -0.5. The reduced block's retry ladder (0 -> 0.1 -> 1.0,
+    each rung reloading S from s_scr) accepts it at 1.0 with attempts 3,
+    and one attempt rejects the lane; same tolerances."""
+    _ragged_case(cuda, dtype, attempts, 40, 37, 126, 257, reduced_lane=1)
+
+
+def _ragged_case(cuda, dtype, attempts, nb, ni, nr, lanes, reduced_lane=None):
+    """The three kernels against their plain versions on ``lanes`` random
+    lanes of one shape (see the ragged test); ``reduced_lane`` makes that
+    lane's reduced block indefinite."""
     rng = np.random.default_rng(4)
     core = cuda_kkt.make_core(np.arange(nb * ni).reshape(nb, ni),
                               np.arange(nb * ni, nb * ni + nr), nb * ni + nr)
@@ -537,6 +632,12 @@ def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, a
     K_ir = rng.standard_normal((lanes, nb, ni, nr)) * 0.3
     A = rng.standard_normal((lanes, nr, nr))
     K_rr = A @ np.swapaxes(A, -1, -2) + 4 * nr * np.eye(nr)
+    if reduced_lane is not None:
+        K_ir[reduced_lane] = 0.0
+        Qr, _ = np.linalg.qr(rng.standard_normal((nr, nr)))
+        lam_r = rng.uniform(1.0, 10.0, nr)
+        lam_r[0] = -0.5
+        K_rr[reduced_lane] = (Qr * lam_r) @ Qr.T
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
     Kt = [k[..., :lanes].contiguous() for k in core.pad_move(t(K_ii), t(K_ir), t(K_rr))]
     delta = torch.zeros(lanes, dtype=dtype, device=cuda)
@@ -551,6 +652,9 @@ def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, a
     assert 0 < int(ok.sum()) < lanes
     if attempts == 3:
         assert bool((fac[6][1] == 1.0).any())
+    if reduced_lane is not None:
+        assert bool(ok[reduced_lane]) == (attempts == 3)
+        assert float(fac[6][-1, reduced_lane]) == (1.0 if attempts == 3 else 0.0)
     tol = 1e-4 if dtype == torch.float32 else 1e-11
     for got, want in zip(fac, fac_ref):
         assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
@@ -566,6 +670,47 @@ def test_redesigned_kernels_match_plain_versions_at_ragged_shapes(cuda, dtype, a
     for got, want in zip(up, up_ref):
         assert _lane_rel_err(got[..., ok], want[..., ok]) <= tol
     assert cuda_kkt.LAUNCHES == {"factor": 1, "apply_down": 1, "apply_up": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_factor_launch_picks_the_body_by_shape(cuda, dtype):
+    """The factor's launch, read from its launcher (``bak_factor_launch_*``)
+    at every ragged card shape and the benchmark cells' shapes, is the
+    Python mirror's (``factor_tile_lanes``, ``factor_lane_bytes``): the LQR
+    (10, 16, 25) shape takes the lane tile in both types, the orbit's (40,
+    37, 126) the wide body. Launches at both count per body, the wide ones
+    under ``kkt.factor_wide`` too, and the bodies add up to
+    ``LAUNCHES["factor"]``."""
+    from pockit_tpu_torch.utils.profiling import recording
+
+    pad = lambda n: -(-n // 8) * 8
+    cells = [(10, 16, 25, 16384), (40, 37, 126, 1024), (10, 16, 25, 8192)]
+    for nb, ni, nr, lanes in RAGGED_CASES + cells:
+        got = cuda_kkt.factor_launch(pad(ni), pad(nr), lanes, dtype)
+        lanes_cta = cuda_kkt.factor_tile_lanes(pad(ni), pad(nr), dtype)
+        assert got["lanes"] == lanes_cta
+        assert got["body"] == ("wide" if lanes_cta == 1 else "lane_tile")
+        assert got["warps"] == (cuda_kkt.WIDE_WARPS if got["body"] == "wide" else lanes_cta)
+        assert got["smem"] == lanes_cta * cuda_kkt.factor_lane_bytes(pad(ni), pad(nr), dtype)
+    assert cuda_kkt.factor_launch(16, 32, 16384, dtype)["body"] == "lane_tile"
+    assert cuda_kkt.factor_launch(40, 128, 1024, dtype)["body"] == "wide"
+    with pytest.raises(ValueError, match="no launch"):
+        cuda_kkt.factor_launch(64, 128 + 8, 1, dtype)
+    cuda_kkt.reset_launches()
+    kw = dict(pivot_rtol=PIVOT_RTOL, delta_floor=FLOOR, attempts=1)
+    with recording() as rec:
+        for (nb, ni_p, nr_p), times in (((3, 16, 32), 2), ((2, 40, 128), 3)):
+            eye = lambda n: torch.eye(n, dtype=dtype, device=cuda)[:, :, None].expand(n, n, 5)
+            K_ii = eye(ni_p)[None].expand(nb, -1, -1, -1).contiguous()
+            K_ir = torch.zeros(nb, ni_p, nr_p, 5, dtype=dtype, device=cuda)
+            K_rr = eye(nr_p).contiguous()
+            for _ in range(times):
+                cuda_kkt.factor_blocks(K_ii, K_ir, K_rr, torch.zeros(5, dtype=dtype, device=cuda),
+                                       ni_real=ni_p, nr_real=nr_p, **kw)
+    assert dict(cuda_kkt.FACTOR_BODIES) == {"lane_tile": 2, "wide": 3}
+    assert rec["counters"]["kkt.factor_wide"] == 3
+    assert sum(cuda_kkt.FACTOR_BODIES.values()) == cuda_kkt.LAUNCHES["factor"] == 5
 
 
 @pytest.mark.gpu
