@@ -44,7 +44,7 @@ import torch
 from torch.func import grad, jacfwd, jacrev, jvp, vjp, vmap
 
 from pockit_tpu_torch.solver.options import IPOptions
-from pockit_tpu_torch.utils.profiling import count, phases, span
+from pockit_tpu_torch.utils.profiling import count, phases, recording_on, span
 
 _FILTER_SIZE = 24
 
@@ -688,7 +688,8 @@ def make_ip_solver(
             if use_block:
                 # block-arrow assembly from interval-local AD: no (n, n)
                 # matrix anywhere
-                K_ii0, K_ir0, K_rr0 = assemble_b(z, y, D, rt)
+                with span("ipm.assemble.blocks"):
+                    K_ii0, K_ir0, K_rr0 = assemble_b(z, y, D, rt)
                 eye_ni = torch.eye(K_ii0.shape[-1], dtype=dtype, device=dev)
                 sig_ext = torch.cat([sigma_z, sigma_z.new_zeros((B, 1))], -1)
                 K_ii0 = K_ii0 + eye_ni * sig_ext[:, interior][..., None]
@@ -1017,6 +1018,12 @@ def make_ip_solver(
                 )
 
             a_pri_max = _ftb_primal(dz, ds)
+            if recording_on():
+                # lanes whose step the variable bounds cut (a device read)
+                a_z = torch.minimum(
+                    _max_step(has_zl, al, dz, tau), _max_step(has_zu, au, -dz, tau)
+                )
+                count("ipm.bound_cut", int(((a_z < 1.0) & active).sum()))
             a_dual = torch.minimum(
                 torch.minimum(
                     _max_step(has_zl, w_l, dw_l, tau), _max_step(has_zu, w_u, dw_u, tau)

@@ -36,6 +36,7 @@ from torch.func import grad, hessian, jacfwd, vmap
 from pockit_tpu_torch.base.bc import BcType
 from pockit_tpu_torch.solver.structured import StructuredLayout, structured_layout
 from pockit_tpu_torch.transcription.compiled import _ConstCache
+from pockit_tpu_torch.utils.profiling import count
 
 
 class BlockKKT(NamedTuple):
@@ -596,6 +597,7 @@ def make_block_kkt(system) -> Optional[BlockKKT]:
 
         K_ii_parts, K_ir_parts = [], []
         K_rr = z.new_zeros((nr, nr))
+        count("kkt.phase_groups", len(groups))
         for ph, ifn, cst, l_i in zip(groups, fns_pt, consts, l_i_of):
             bc = rt["bc"][ph["pi"]].to(z.dtype)
             row_idx = cst.get("row_idx", z)

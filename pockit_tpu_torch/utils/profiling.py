@@ -11,15 +11,21 @@ can be captured to a Chrome/Perfetto trace::
 View the ``.json`` file with ui.perfetto.dev or ``chrome://tracing``.
 
 The solver marks its phases with :func:`span` (``ipm.init``,
-``ipm.iteration`` and, inside each trip, ``ipm.assemble``, ``ipm.newton``,
-``ipm.line_search``, ``ipm.update``; then ``ipm.finalize``; each drain
-round of ``solve_batch_drained`` is an ``ipm.drain_round``) and counts
-events with :func:`count` (``ipm.factor_tries``: one per rung of the
-inertia-correction ladder, that is one factorization; ``ipm.ls_trials``:
-one per backtracking trial). Under ``torch.profiler`` a span is a
-``record_function`` range, on the profiler's clock with the kernels it
-launches; inside :func:`recording` it adds its host seconds and calls,
-and a counter its count, to the recording::
+``ipm.iteration`` and, inside each trip, ``ipm.assemble`` (on the
+block-arrow paths the block assembly inside it, ``ipm.assemble.blocks``),
+``ipm.newton``, ``ipm.line_search``, ``ipm.update``; then
+``ipm.finalize``; each drain round of ``solve_batch_drained`` is an
+``ipm.drain_round``) and counts events with :func:`count`
+(``ipm.factor_tries``: one per rung of the inertia-correction ladder, that
+is one factorization; ``ipm.ls_trials``: one per backtracking trial;
+``ipm.bound_cut``: the active lanes of a trip whose primal step the
+fraction-to-boundary rule on the variable bounds cut below 1, read from
+the device only inside a recording; ``kkt.phase_groups``: the phase groups
+one block assembly dispatches, one per phase and interval degree). Under
+``torch.profiler`` a span is a ``record_function`` range, on the
+profiler's clock with the kernels it launches; inside :func:`recording` it
+adds its host seconds and calls, and a counter its count, to the
+recording::
 
     with recording() as rec:
         res = ipm.solve_batch(system, guesses)
@@ -85,6 +91,13 @@ def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name`` of the open recording, if any."""
     if _REC is not None:
         _REC["counters"][name] = _REC["counters"].get(name, 0) + n
+
+
+def recording_on() -> bool:
+    """Whether a :func:`recording` is open: a counter whose count needs a
+    read from the device asks first, so that no sync is added when nobody
+    records."""
+    return _REC is not None
 
 
 class _Span:

@@ -10,10 +10,18 @@ the CPU, on the float64 LQR of the README (6x6 LGL) at B=4:
 - under ``profile_trace`` each span is a range of the trace, the in-trip
   ones inside an ``ipm.iteration``, one ``ipm.iteration`` a trip as before;
 - a drain round is an ``ipm.drain_round``; a phase closes when the solve
-  raises; a second recording does not open inside the first.
+  raises; a second recording does not open inside the first;
+- on the 3-phase Goddard rocket of ``benchmark/configs/goddard_radau3x4x7``
+  (cut to 2 intervals of 5 nodes a phase, B=2, the singular arc's thrust
+  guessed near its lower bound): each block assembly
+  (``ipm.assemble.blocks``) dispatches three phase groups
+  (``kkt.phase_groups``), the box on the singular arc cuts steps
+  (``ipm.bound_cut`` > 0), and that counter reads the device only inside a
+  recording: one read a trip more, none without.
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +32,8 @@ from pockit_tpu_torch.optimizer import ipm
 from pockit_tpu_torch.optimizer._common import preprocess
 from pockit_tpu_torch.solver import IPOptions
 from pockit_tpu_torch.utils import count, profile_trace, profiling, recording, span
+
+from benchmark.configs import goddard_radau3x4x7 as goddard_config
 
 B = 4
 IN_TRIP = ("ipm.assemble", "ipm.newton", "ipm.line_search", "ipm.update")
@@ -91,7 +101,15 @@ def test_recording_holds_every_phase_of_a_solve(lqr, kkt_solver):
         assert spans[name]["calls"] == trips and spans[name]["s"] > 0
     assert sum(spans[name]["s"] for name in IN_TRIP) <= spans["ipm.iteration"]["s"]
     assert counters["ipm.factor_tries"] >= trips
-    assert set(spans) == {"ipm.iteration", *ONCE, *IN_TRIP}
+    # the block-arrow paths assemble K by phase groups: one phase of one
+    # interval degree here, one group an assembly
+    blocks = {"ipm.assemble.blocks"} if kkt_solver != "dense" else set()
+    assert set(spans) == {"ipm.iteration", *ONCE, *IN_TRIP, *blocks}
+    if blocks:
+        assert spans["ipm.assemble.blocks"]["calls"] == trips
+        assert spans["ipm.assemble.blocks"]["s"] <= spans["ipm.assemble"]["s"]
+        assert counters["kkt.phase_groups"] == trips
+    assert counters["ipm.bound_cut"] == 0  # no bounded variable
 
 
 def test_answers_are_the_same_recorded_profiled_or_neither(runs):
@@ -153,3 +171,53 @@ def test_a_phase_closes_when_the_work_raises_and_recordings_do_not_nest():
     assert rec["counters"] == {"k": 3} and profiling._REC is None
     count("k")  # closed: nothing to add to
     assert rec["counters"] == {"k": 3}
+
+
+@pytest.fixture(scope="module")
+def goddard():
+    """The Goddard rocket of the benchmark's configuration on 2x5 Radau
+    phases, two lanes of launch mass m0 in [0.97, 1.03], guessed with the
+    singular arc's thrust near its lower bound (0.05), so that the first
+    steps meet the box."""
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+    cfg = {**json.loads((path / "goddard_radau3x4x7.json").read_text()),
+           "intervals": 2, "points": 5}
+    cfg["guess"] = {**cfg["guess"], "phases": [dict(p) for p in cfg["guess"]["phases"]]}
+    cfg["guess"]["phases"][1]["u"] = 0.05
+    problem = goddard_config.build(cfg)
+    m0 = np.random.default_rng(2**31 + 17).uniform(0.97, 1.03, 2)
+    z0 = torch.as_tensor(np.tile(problem.guesses["config"], (2, 1)))
+    bc = tuple(torch.as_tensor(b) for b in goddard_config.boundary(problem, {"m0": m0}))
+    return problem.system, z0, bc
+
+
+def _goddard_solve(goddard, max_iter=6):
+    system, z0, bc = goddard
+    return ipm.solve_batch(system, z0, bc_overrides=bc, device="cpu",
+                           optimizer_options=IPOptions(tol=1e-7, max_iter=max_iter))
+
+
+def test_goddard_assembles_three_phase_groups_and_cuts_steps_at_its_box(goddard):
+    with recording() as rec:
+        _goddard_solve(goddard)
+    trips = rec["spans"]["ipm.iteration"]["calls"]
+    assert rec["spans"]["ipm.assemble.blocks"]["calls"] == trips
+    assert rec["counters"]["kkt.phase_groups"] == 3 * trips
+    assert 0 < rec["counters"]["ipm.bound_cut"] <= 2 * trips
+
+
+def test_the_bound_cut_reads_the_device_only_inside_a_recording(goddard, monkeypatch):
+    """Every read of a tensor's value on the host counted, the solve makes
+    exactly one more a trip inside a recording (the counter's) than with
+    nothing active: no read, so no sync, is added when nobody records."""
+    reads = [0]
+    for name in ("__int__", "__bool__", "__float__", "item", "tolist"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            (lambda f: lambda self, *a: (reads.__setitem__(0, reads[0] + 1),
+                                                         f(self, *a))[1])(real))
+    _goddard_solve(goddard)
+    off = reads[0]
+    with recording() as rec:
+        _goddard_solve(goddard)
+    assert reads[0] - 2 * off == rec["spans"]["ipm.iteration"]["calls"]
